@@ -2,21 +2,40 @@
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 
-1. **Build** the CUDA kernel (``nvcc`` for ``sm_90a``, at first use) and
-   print the card's name and power limit.
-2. **Kernel against its plain version** on the card: byte-equal over a
-   grid of unaligned widths and (K, R) up to 16; then a small checkpoint
-   saved on the card must give the same fabric bytes as the port's CPU
-   path, which the tests hold equal to the JAX package.
-3. **The main path at real size**: the 24 bf16 parameter leaves of
+1. **Build** both CUDA kernels (``nvcc`` for ``sm_90a``, one process per
+   source, started together) and print the card's name and power limit.
+2. **Kernels against their plain versions** on the card.
+   ``rs_bitmatmul``: byte-equal over a grid of unaligned widths and (K, R)
+   up to 16.  ``pb_frontier``: int64-equal over L in {2, 3, 17, 64, 65,
+   rung(1025), node_pad(10 000)}, S in {1, 8, L-1} and targets {0.5, 0.99,
+   0.999, 0.9999999} plus one set exactly to a CDF value the plain
+   version computes; equal also to the port's numpy
+   ``ParityFrontier.upto_many`` (cuts below).
+3. **Small checkpoint, every scheduler**: for each of the nine scheduler
+   names a small state saved on the card must give the same fabric bytes
+   as the port's CPU path, and a restore after a data-row loss must be
+   bit-exact.
+4. **Decisions at scale**: the 10,000-node heterogeneous cluster and the
+   1-400 MB item generator of the repo's scale lane, seeds 0 and 1.  For
+   ``drex_sc``, ``drex_lb`` and ``greedy_least_used`` with the device path
+   forced, ``place_batch`` of 64 items on the card must equal
+   ``place_scalar`` item by item on the same snapshot; then, on seed 0, a
+   committed ``PlacementEngine.place_many`` under the reference's dispatch
+   rule must equal the port's CPU oracle path.  ``greedy_min_storage`` is held the
+   same way on a 1,000-node cluster from the same generator.  The CPU
+   oracles run in worker processes while the card works.
+5. **The main path at real size**: the 24 bf16 parameter leaves of
    RWKV6-1.6B (3.20 GB, filled from ``--seed`` on the card) are saved
    through D-Rex SC on the ``most_used`` node set with the default
-   checkpoint policy; the node holding row 0 of the first group fails;
-   the state is restored and checked bit-exact; ``repair`` runs and the
-   state is restored and checked again.  The kernel's launch count is
-   set to 0 just before and read just after.
-4. **Timing** of the kernel and its plain version, with CUDA events, at
-   every shape the main path launched.
+   checkpoint policy, D-Rex SC scoring the save's groups on the card; the
+   72 groups' (K, P, nodes) must equal the CPU oracle's on the same group
+   sizes; the node holding row 0 of the first group fails; the state is
+   restored and checked bit-exact; ``repair`` runs and the state is
+   restored and checked again.  Every launch count is set to 0 just
+   before and read just after.
+6. **Timing** of each kernel and its plain version, with CUDA events, at
+   the shapes the main path launched (and, for ``pb_frontier``, at the
+   decisions-at-scale shape).
 
 Every phase raises on failure.  The last line is the device record; the
 line before it lists the kernels.  Without a CUDA device the script
@@ -27,7 +46,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import json
+import multiprocessing
 import pathlib
 import resource
 import statistics
@@ -35,15 +56,17 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM device-memory rate and int8 tensor-core peak (NVIDIA data
-#: sheet, dense), the rates the bound below is taken against.
+#: H100 SXM device-memory rate, int8 tensor-core peak and FP64 vector
+#: peak (NVIDIA data sheet, dense), the rates the bounds are taken against.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+FP64_OPS_PER_S = 34e12
 
 #: RWKV6-1.6B parameter leaves in the JAX package's layout
 #: (``repro.models.model.init_params(get_config("rwkv6_1_6b"))`` under
@@ -74,8 +97,25 @@ RWKV6_1_6B = [
     ("layers.tmix.x_maa", (24, 2048)),
     ("lm_head", (2048, 65536)),
 ]
-#: what the run leaves out of a training checkpoint, for its time limit.
-CUTS = ["optimizer moments (AdamW m, v) left out: parameters only"]
+#: what the run leaves out, for its time limit.
+CUTS = [
+    "optimizer moments (AdamW m, v) left out of the checkpoint: parameters only",
+    "greedy_min_storage held on 1,000 nodes with 16 items (its scalar oracle "
+    "takes ~0.4 s per item there and grows with the node count squared)",
+    "drex_lb's committed place_many holds 24 items, not 256 (its CPU oracle "
+    "builds an (L-2) x L penalty matrix per decision: ~1-2 s at 10,000 nodes)",
+    "pb_frontier grid: S = L-1 at L = node_pad(10 000) left out (a 4 GB plain "
+    "DP); upto_many compared at S <= 8 for L >= rung(1025) and at S = 1 on two "
+    "rows for L = node_pad(10 000)",
+]
+
+#: the card every phase runs on (a CPU rehearsal of phases 3-4 at a tiny
+#: size sets this to "cpu"; the script itself always runs on "cuda").
+DEV = "cuda"
+SCALE_NODES = 10_000
+SCALE_BATCH = 64
+SCALE_COMMITTED = {"drex_sc": 256, "drex_lb": 24, "greedy_least_used": 256}
+MS_NODES, MS_ITEMS = 1_000, 16
 
 
 def log(msg: str) -> None:
@@ -99,20 +139,47 @@ def cuda_time_ms(fn, warmup: int = 1, reps: int = 5) -> float:
 
 
 def bound_ms(r: int, k: int, b: int) -> tuple[float, str]:
-    """Least time for one launch: each input byte read once and each
-    output byte written once over HBM, or the mod-2 product's 2*8R*8K*B
-    operations at the int8 tensor-core peak, whichever is larger."""
+    """Least time for one rs_bitmatmul launch: each input byte read once
+    and each output byte written once over HBM, or the mod-2 product's
+    2*8R*8K*B operations at the int8 tensor-core peak, whichever is
+    larger."""
     t_bytes = ((k + r) * b + 64 * r * k) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * (8 * r) * (8 * k) * b / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def frontier_bound_ms(mp: np.ndarray, S: int, L_live: int, W: int) -> tuple[float, str]:
+    """Least time for one pb_frontier launch on these inputs: probs,
+    targets and out moved once over HBM, or the f64 operations this data
+    needs at the FP64 vector peak — per row (b, s) and step i in
+    [s, L_live): 3 per updated DP entry (min(i-s+1, W-1) + 1 of them),
+    one for 1 - p, and one add per CDF term the scan reads (found + 1, or
+    every admissible term when none reaches the target)."""
+    B, _, L = mp.shape
+    live = min(L, L_live)
+    s = np.arange(S)[:, None]
+    i = np.arange(L)[None, :]
+    active = (i >= s) & (i < live)
+    n_len = i - s + 1
+    upd = np.minimum(n_len, W - 1) + 1
+    scan = np.where(mp >= 0, mp + 1, np.minimum(n_len - 1, W - 1) + 1)
+    ops = float(B * ((3 * upd + 1) * active).sum() + (scan * active[None]).sum())
+    t_ops = ops / FP64_OPS_PER_S * 1e3
+    t_bytes = 8 * (B * L + B + B * S * L) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- 1. build ------------------------------------------------------------------
+
+
 def phase_build() -> str:
-    from repro_torch.kernels import rs_bitmatmul
+    from repro_torch.kernels import pb_frontier, rs_bitmatmul
 
     t0 = time.perf_counter()
-    lib = rs_bitmatmul.build(verbose=True)
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(lambda b: b(verbose=True),
+                             (rs_bitmatmul.build, pb_frontier.build)))
+    log(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -121,9 +188,10 @@ def phase_build() -> str:
     return smi
 
 
-def phase_kernel_grid(seed: int) -> None:
-    import numpy as np
+# -- 2. kernels against their plain versions -----------------------------------
 
+
+def phase_kernel_grid(seed: int) -> None:
     from repro_torch.ec import gf256
     from repro_torch.kernels import ref, rs_bitmatmul
 
@@ -146,45 +214,352 @@ def phase_kernel_grid(seed: int) -> None:
     bm = torch.from_numpy(gf256.gf_to_bitmatrix(gf256.cauchy_matrix(2, 3))).cuda()
     if not torch.equal(rs_bitmatmul.gf_bitmatmul(bm, d), ref.bitmatmul_ref(bm, d)):
         raise AssertionError("kernel != plain version on an unaligned row start")
-    log(f"[kernel] byte-equal to the plain version on {len(cases) + 1} shapes")
+    log(f"[kernel] rs_bitmatmul byte-equal to the plain version on {len(cases) + 1} shapes")
+
+
+def _cdf_value(probs: torch.Tensor, n: int, j: int) -> float:
+    """The running-sum CDF at parity ``j`` after ``n`` DP steps from start
+    0, in the plain version's arithmetic (an ulp-tight target)."""
+    dp = torch.zeros(n + 1, dtype=torch.float64, device=probs.device)
+    dp[0] = 1.0
+    for i in range(n):
+        p = probs[i]
+        nd = dp * (1.0 - p)
+        nd[1:] = nd[1:] + dp[:-1] * p
+        dp = nd
+    run = dp[0]
+    for jj in range(1, j + 1):
+        run = run + dp[jj]
+    return float(run)
+
+
+def phase_frontier_grid(seed: int) -> int:
+    from repro_torch.core import shapes
+    from repro_torch.core.reliability import ParityFrontier
+    from repro_torch.kernels import pb_frontier, ref
+
+    rng = np.random.default_rng(seed + 1)
+    n_cases = 0
+    per_L = {}
+    for L in (2, 3, 17, 64, 65, shapes.rung(1025), shapes.node_pad(10_000)):
+        t0 = time.perf_counter()
+        # Fail probabilities small enough that the min parity stays a few
+        # units: the plain version's scan costs one step per parity.
+        hi = min(0.3, 2.0 / L)
+        probs = torch.from_numpy(rng.uniform(0.0, hi, size=(5, L))).cuda()
+        targets = [0.5, 0.99, 0.999, 0.9999999,
+                   _cdf_value(probs[4], min(L, 5), 1 if L > 1 else 0)]
+        t = torch.tensor(targets, dtype=torch.float64, device="cuda")
+        big = L >= shapes.node_pad(10_000)
+        for S in sorted({1, min(8, L), max(1, L - 1)}):
+            if big and S > 8:
+                continue
+            got = pb_frontier.frontier(probs, t, S, L, L + 1)
+            want = ref.pb_frontier_ref(probs, t, S, L, L + 1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"pb_frontier != plain version at L={L} S={S}")
+            n_cases += 1
+            if (L >= shapes.rung(1025) and S > 8) or (big and S > 1):
+                continue
+            g = got.cpu().numpy()
+            p_np = probs.cpu().numpy()
+            for b in range(2 if big else 5):
+                up = ParityFrontier(p_np[b], targets[b]).upto_many(n_starts=S)
+                for s in range(S):
+                    if not np.array_equal(g[b, s, s:], up[s, : L - s]):
+                        raise AssertionError(
+                            f"pb_frontier != upto_many at L={L} S={S} row {b} start {s}"
+                        )
+        per_L[L] = round(time.perf_counter() - t0, 2)
+    log(f"[kernel] pb_frontier int64-equal to the plain version on {n_cases} "
+        f"(L, S) cases x 5 targets (one ulp-tight), and to upto_many; s per L {per_L}")
+    return n_cases
+
+
+# -- 3. small checkpoint, every scheduler -------------------------------------
 
 
 def phase_small_checkpoint(seed: int) -> None:
-    """A small state through the checkpointer on the card and on the CPU:
-    the fabric bytes must be identical, and a restore after a data-row
-    loss bit-exact."""
+    """A small state through the checkpointer on the card and on the CPU,
+    for every scheduler: the fabric bytes must be identical, and a
+    restore after a data-row loss bit-exact."""
     from repro_torch.checkpoint import CheckpointPolicy, DRexCheckpointer, StorageFabric
+    from repro_torch.core import SCHEDULER_NAMES
     from repro_torch.storage import make_node_set
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
     state = {
-        "w": torch.randn((512, 700), generator=gen, device="cuda").to(torch.bfloat16),
-        "b": torch.randn((3001,), generator=gen, device="cuda"),
-        "n": torch.arange(12345, dtype=torch.int32, device="cuda"),
+        "w": torch.randn((512, 700), generator=gen, device=DEV).to(torch.bfloat16),
+        "b": torch.randn((3001,), generator=gen, device=DEV),
+        "n": torch.arange(12345, dtype=torch.int32, device=DEV),
     }
-    cks = {}
-    for dev in ("cuda", "cpu"):
-        fabric = StorageFabric(make_node_set("most_used", capacity_scale=1e-5))
-        ck = DRexCheckpointer(fabric, "drex_sc", CheckpointPolicy(item_mb=0.25), device=dev)
-        ck.save(state, 1)
-        cks[dev] = ck
-    if cks["cuda"].fabric._blobs != cks["cpu"].fabric._blobs:
-        raise AssertionError("card and CPU paths stored different chunk bytes")
-    ck = cks["cuda"]
-    ck.fabric.fail_node(ck._manifests[1]["leaves"][0]["groups"][0]["node_ids"][0])
-    got = ck.restore(1, state)
-    for name, t in state.items():
-        if not torch.equal(got[name], t):
-            raise AssertionError(f"small restore differs at {name}")
-    for c in cks.values():
-        c.close()
-    log("[small] card == CPU chunk bytes; restore after a data-row loss bit-exact")
+    for name in SCHEDULER_NAMES:
+        cks = {}
+        for dev in (DEV, "cpu"):
+            fabric = StorageFabric(make_node_set("most_used", capacity_scale=1e-5))
+            ck = DRexCheckpointer(fabric, name, CheckpointPolicy(item_mb=0.25), device=dev)
+            ck.save(state, 1)
+            cks[dev] = ck
+        if cks[DEV].fabric._blobs != cks["cpu"].fabric._blobs:
+            raise AssertionError(f"{name}: card and CPU paths stored different chunk bytes")
+        ck = cks[DEV]
+        ck.fabric.fail_node(ck._manifests[1]["leaves"][0]["groups"][0]["node_ids"][0])
+        got = ck.restore(1, state)
+        for key, t in state.items():
+            if not torch.equal(got[key], t):
+                raise AssertionError(f"{name}: small restore differs at {key}")
+        for c in cks.values():
+            c.close()
+    log(f"[small] {len(SCHEDULER_NAMES)} schedulers: card == CPU chunk bytes; "
+        "restore after a data-row loss bit-exact")
+
+
+# -- 4. decisions at scale ----------------------------------------------------
+
+
+def scale_cluster(n_nodes: int, seed: int):
+    """The scale lane's heterogeneous cluster (benchmarks/scale_cluster.py,
+    ``synthetic_cluster``): straight from arrays, racks/zones round-robin."""
+    from repro_torch.core import ClusterView
+
+    rng = np.random.default_rng(seed)
+    return ClusterView(
+        capacity_mb=rng.uniform(2e3, 1e5, n_nodes),
+        used_mb=rng.uniform(0.0, 1e3, n_nodes),
+        write_bw=rng.uniform(50.0, 400.0, n_nodes),
+        read_bw=rng.uniform(50.0, 450.0, n_nodes),
+        afr=rng.uniform(0.001, 0.1, n_nodes),
+        alive=np.ones(n_nodes, dtype=bool),
+        rack=np.arange(n_nodes, dtype=np.int64) % 64,
+        zone=np.arange(n_nodes, dtype=np.int64) % 8,
+    )
+
+
+def scale_items(batch: int, seed: int):
+    """The scale lane's items (``_items``): 1-400 MB, 365 days, RT 0.99."""
+    from repro_torch.core import DataItem
+
+    rng = np.random.default_rng(seed)
+    return [
+        DataItem(i, float(rng.uniform(1.0, 400.0)), float(i), 365.0, 0.99)
+        for i in range(batch)
+    ]
+
+
+def _dkey(d) -> tuple:
+    pl = d.placement
+    nodes = None if pl is None else (pl.k, pl.p, tuple(int(x) for x in pl.node_ids))
+    return nodes, d.candidates_considered, d.reason
+
+
+def _rkey(r) -> tuple:
+    pl = r.placement
+    nodes = None if pl is None else (pl.k, pl.p, tuple(int(x) for x in pl.node_ids))
+    return r.item_id, nodes, r.reason, r.committed
+
+
+def oracle_job(kind: str, name: str, n_nodes: int, seed: int, lo: int, hi: int):
+    """CPU oracle decisions in a worker process: ``scalar`` runs
+    ``place_scalar`` on items ``lo..hi`` of one snapshot (the running
+    smallest-size anchor of items ``0..lo`` observed first); ``committed``
+    runs a committed ``place_many`` of the first ``hi`` items through the
+    numpy oracle."""
+    from repro_torch.core import BatchContext, PlacementEngine, create_scheduler
+
+    cluster = scale_cluster(n_nodes, seed)
+    items = scale_items(hi, seed + 1)
+    sched = create_scheduler(name, device="cpu")
+    sched.use_kernel = False
+    t0 = time.perf_counter()
+    if kind == "scalar":
+        for it in items[:lo]:
+            sched.observe_item(it)
+        ctx = BatchContext()
+        out = [_dkey(sched.place_scalar(it, cluster, ctx)) for it in items[lo:hi]]
+    else:
+        out = [_rkey(r) for r in PlacementEngine(cluster, sched).place_many(items)]
+    return out, time.perf_counter() - t0
+
+
+def start_oracles(pool) -> dict:
+    """Submit every CPU oracle job of phase 4 (longest first)."""
+    jobs = {("drex_lb", 0, "committed"): [pool.submit(
+        oracle_job, "committed", "drex_lb", SCALE_NODES, 0, 0, SCALE_COMMITTED["drex_lb"])]}
+    for seed in (0, 1):
+        jobs[("drex_lb", seed, "scalar")] = [
+            pool.submit(oracle_job, "scalar", "drex_lb", SCALE_NODES, seed, lo, lo + 8)
+            for lo in range(0, SCALE_BATCH, 8)
+        ]
+    for name in ("drex_sc", "greedy_least_used"):
+        jobs[(name, 0, "committed")] = [pool.submit(
+            oracle_job, "committed", name, SCALE_NODES, 0, 0, SCALE_COMMITTED[name])]
+    jobs[("greedy_min_storage", 0, "committed")] = [pool.submit(
+        oracle_job, "committed", "greedy_min_storage", MS_NODES, 0, 0, MS_ITEMS)]
+    for seed in (0, 1):
+        for name in ("drex_sc", "greedy_least_used"):
+            jobs[(name, seed, "scalar")] = [pool.submit(
+                oracle_job, "scalar", name, SCALE_NODES, seed, 0, SCALE_BATCH)]
+        jobs[("greedy_min_storage", seed, "scalar")] = [pool.submit(
+            oracle_job, "scalar", "greedy_min_storage", MS_NODES, seed, 0, MS_ITEMS)]
+    return jobs
+
+
+def _collect(futures) -> tuple[list, float]:
+    out, cpu_s = [], 0.0
+    for f in futures:
+        part, s = f.result()
+        out.extend(part)
+        cpu_s += s
+    return out, cpu_s
+
+
+def phase_scale(jobs: dict) -> dict:
+    """Device decisions at scale against the CPU oracles of ``jobs``."""
+    from repro_torch.core import PlacementEngine, create_scheduler, prefilter
+    from repro_torch.kernels import pb_frontier
+
+    report = {}
+    for name in ("drex_sc", "drex_lb", "greedy_least_used", "greedy_min_storage"):
+        n_nodes = MS_NODES if name == "greedy_min_storage" else SCALE_NODES
+        n_batch = MS_ITEMS if name == "greedy_min_storage" else SCALE_BATCH
+        n_commit = MS_ITEMS if name == "greedy_min_storage" else SCALE_COMMITTED[name]
+        for seed in (0, 1):
+            cluster = scale_cluster(n_nodes, seed)
+            items = scale_items(max(n_batch, n_commit), seed + 1)
+            forced = create_scheduler(name, device=DEV)
+            forced.KERNEL_MIN_NODES = 0
+            forced.KERNEL_MIN_NODES_BATCH = 0
+            prefilter.reset_stats()
+            pb_frontier.reset_launches()
+            t0 = time.perf_counter()
+            batch = [_dkey(d) for d in forced.place_batch(items[:n_batch], cluster)]
+            batch_s = time.perf_counter() - t0
+            launches_batch = pb_frontier.launches
+            counters_batch = prefilter.stats().get(name, {})
+
+            scalar, scalar_cpu = _collect(jobs[(name, seed, "scalar")])
+            bad_batch = sum(a != b for a, b in zip(batch, scalar)) + abs(len(batch) - len(scalar))
+            row = {
+                "scheduler": name, "seed": seed, "nodes": n_nodes,
+                "batch_items": n_batch, "batch_disagree": bad_batch,
+                "batch_ms_per_decision_card": batch_s / n_batch * 1e3,
+                "scalar_ms_per_decision_oracle": scalar_cpu / n_batch * 1e3,
+                "batch_pb_frontier_launches": launches_batch,
+                "batch_prefilter": counters_batch,
+            }
+            if (name, seed, "committed") in jobs:
+                # The committed stream under the reference's dispatch rule.
+                prefilter.reset_stats()
+                pb_frontier.reset_launches()
+                engine = PlacementEngine(cluster.copy(), create_scheduler(name, device=DEV))
+                t0 = time.perf_counter()
+                committed = [_rkey(r) for r in engine.place_many(items[:n_commit])]
+                commit_s = time.perf_counter() - t0
+                oracle, oracle_cpu = _collect(jobs[(name, seed, "committed")])
+                row.update({
+                    "committed_items": n_commit,
+                    "committed_disagree": sum(a != b for a, b in zip(committed, oracle))
+                    + abs(len(committed) - len(oracle)),
+                    "committed_ms_per_decision_card": commit_s / n_commit * 1e3,
+                    "committed_ms_per_decision_oracle": oracle_cpu / n_commit * 1e3,
+                    "committed_pb_frontier_launches": pb_frontier.launches,
+                    "committed_prefilter": prefilter.stats().get(name, {}),
+                    "placed": sum(k[1] is not None for k in committed),
+                })
+            log("[scale] " + json.dumps(row))
+            if bad_batch or row.get("committed_disagree"):
+                raise AssertionError(f"{name} seed {seed}: device decisions differ from "
+                                     f"the oracle ({row})")
+            report[f"{name}/{seed}"] = row
+    return report
+
+
+def phase_lb_carry() -> dict:
+    """D-Rex LB's device grid (its left-to-right carry is a loop over
+    nodes) timed at the filtered width ``lb_cap()`` and on the unfiltered
+    fallback over all live nodes: 64 items of the 10,000-node cluster,
+    host frontier rows as the scheduler builds them."""
+    from repro_torch.core import ParityFrontier, lb_kernel, prefilter
+    from repro_torch.core.algorithms import Scheduler
+
+    cluster = scale_cluster(SCALE_NODES, 0)
+    items = scale_items(SCALE_BATCH, 1)
+    by_free = Scheduler._live_sorted(cluster, cluster.free_mb)
+    free = cluster.free_mb[by_free]
+    f_avg = float(free.mean())
+    dev = np.abs(free - f_avg)
+    suffix = np.concatenate([np.cumsum(dev[::-1])[::-1], [0.0]])
+    frontier = ParityFrontier(cluster.fail_probs(365.0)[by_free], 0.99)
+    sizes = np.array([it.size_mb for it in items])
+    out = {}
+    for label, m in (("filtered", prefilter.lb_cap()), ("unfiltered", SCALE_NODES)):
+        rows = np.tile(frontier.upto(m)[:m], (SCALE_BATCH, 1))
+        lb_kernel.lb_batch(rows, sizes, free[:m], f_avg, suffix[: m + 1], device=DEV)
+        t0 = time.perf_counter()
+        lb_kernel.lb_batch(rows, sizes, free[:m], f_avg, suffix[: m + 1], device=DEV)
+        out[label] = {"nodes": m, "items": SCALE_BATCH,
+                      "ms_per_call": (time.perf_counter() - t0) * 1e3}
+    log("[lb_carry] " + json.dumps(out))
+    return out
+
+
+#: cluster sizes at which the dispatch crossovers are measured (the
+#: numpy oracles' cost grows fast with size: ladders stop where the
+#: card's lead is plain).
+CROSSOVER_LADDERS = {
+    "drex_sc": (8, 16, 32, 64, 128, 256, 512),
+    "drex_lb": (16, 64, 128, 256, 512, 1024),
+    "greedy_min_storage": (8, 16, 24, 32, 64, 128, 256),
+    "greedy_least_used": (64, 256, 1024, 4096),
+}
+
+
+def phase_crossovers() -> dict:
+    """The ``KERNEL_MIN_NODES`` / ``KERNEL_MIN_NODES_BATCH`` crossovers on
+    this card: per scheduler and cluster size (the scale lane's
+    generator), the wall time of a single-item decision and of an
+    8-item ``place_batch`` on the card (forced) and in the numpy oracle.
+    Reported, not applied: the schedulers keep the reference's constants."""
+    from repro_torch.core import create_scheduler
+
+    out = {}
+    for name, ladder in CROSSOVER_LADDERS.items():
+        rows = []
+        for n in ladder:
+            cluster = scale_cluster(n, 0)
+            items = scale_items(8, 1)
+            card = create_scheduler(name, device=DEV)
+            card.KERNEL_MIN_NODES = 0
+            card.KERNEL_MIN_NODES_BATCH = 0
+            oracle = create_scheduler(name, device="cpu")
+            oracle.use_kernel = False
+            card.place(items[0], cluster)  # warm-up
+            row = {"nodes": n}
+            for label, sched in (("card", card), ("oracle", oracle)):
+                t0 = time.perf_counter()
+                for it in items[1:4]:
+                    sched.place(it, cluster)
+                row[f"single_ms_{label}"] = (time.perf_counter() - t0) / 3 * 1e3
+                t0 = time.perf_counter()
+                sched.place_batch(items, cluster)
+                row[f"batch8_ms_{label}"] = (time.perf_counter() - t0) * 1e3
+            rows.append(row)
+        first = {kind: next((r["nodes"] for r in rows
+                             if r[f"{kind}_ms_card"] < r[f"{kind}_ms_oracle"]), None)
+                 for kind in ("single", "batch8")}
+        out[name] = {"rows": rows, "card_first_faster_at": first}
+        log(f"[crossover] {name} " + json.dumps(out[name]))
+    return out
+
+
+# -- 5. the main path ---------------------------------------------------------
 
 
 def phase_main(seed: int) -> dict:
     from repro_torch.checkpoint import CheckpointPolicy, DRexCheckpointer, StorageFabric
-    from repro_torch.core import shapes
-    from repro_torch.kernels import ops, rs_bitmatmul
+    from repro_torch.core import ClusterView, DataItem, PlacementEngine, create_scheduler, shapes
+    from repro_torch.kernels import ops, pb_frontier, rs_bitmatmul
     from repro_torch.storage import make_node_set
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -197,20 +572,44 @@ def phase_main(seed: int) -> dict:
     torch.cuda.synchronize()
     fabric = StorageFabric(make_node_set("most_used"))
     ck = DRexCheckpointer(fabric, "drex_sc", CheckpointPolicy(), device="cuda")
+    placed_items: list = []
+    place_many = ck.engine.place_many
+
+    def recording_place_many(items, **kw):
+        placed_items.extend(items)
+        return place_many(items, **kw)
+
+    ck.engine.place_many = recording_place_many
 
     # The main path's run: every count set to 0 just before, read after.
     shapes.reset()
     ops.reset_launch_stats()
     rs_bitmatmul.reset_launches()
+    pb_frontier.reset_launches()
 
     t0 = time.perf_counter()
     manifest = ck.save(state, 1)
     save_s = time.perf_counter() - t0
+    frontier_launches = pb_frontier.launches
     groups = [g for m in manifest["leaves"] for g in m["groups"]]
     save_shapes = sorted(shapes.issued_shapes(ops.CENSUS_KERNEL))
+    frontier_shapes = sorted(shapes.issued_shapes("pb_frontier"))
     hist = collections.Counter(f"({g['k']},{g['p']})" for g in groups)
     nodes = collections.Counter(tuple(g["node_ids"]) for g in groups)
     after_save = ops.launch_stats()
+    if frontier_launches == 0:
+        raise AssertionError("the save did not score its groups through pb_frontier")
+
+    # The same group sizes through the CPU oracle on a fresh node set.
+    oracle = create_scheduler("drex_sc", device="cpu")
+    oracle.use_kernel = False
+    want = PlacementEngine(ClusterView.from_nodes(make_node_set("most_used")), oracle,
+                           auto_commit=False).place_many([
+        DataItem(it.item_id, it.size_mb, it.arrival_time, it.delta_t_days,
+                 it.reliability_target) for it in placed_items])
+    got = [(g["k"], g["p"], tuple(g["node_ids"])) for g in groups]
+    if got != [(r.placement.k, r.placement.p, tuple(r.placement.node_ids)) for r in want]:
+        raise AssertionError("the save's placements differ from the CPU oracle's")
 
     victim = groups[0]["node_ids"][0]
     fabric.fail_node(victim)
@@ -239,6 +638,7 @@ def phase_main(seed: int) -> dict:
     launches = rs_bitmatmul.launches
     per_kind = ops.launch_stats()
     issued = sorted(shapes.issued_shapes(ops.CENSUS_KERNEL))
+    frontier_launches = pb_frontier.launches
     ck.close()
     if after_save["encode"] == 0 or after_restore["decode"] == 0:
         raise AssertionError(f"main path skipped the kernel: {after_save}, {after_restore}")
@@ -250,10 +650,11 @@ def phase_main(seed: int) -> dict:
     gb = n_bytes / 1e9
     report = {
         "state": {"model": "rwkv6_1_6b", "leaves": len(state), "params": n_params,
-                  "bytes": n_bytes, "dtype": "bfloat16", "cuts": CUTS},
+                  "bytes": n_bytes, "dtype": "bfloat16"},
         "groups": len(groups),
         "kp_histogram": dict(hist),
         "node_sets_used": {",".join(map(str, k)): v for k, v in nodes.items()},
+        "placements_equal_cpu_oracle": True,
         "failed_node": victim,
         "save_s": save_s, "save_GBps": gb / save_s,
         "place_s": ck.stats["place_s"], "encode_s": ck.stats["encode_s"],
@@ -261,22 +662,26 @@ def phase_main(seed: int) -> dict:
         "repair_s": repair_s, "repaired_chunks": rebuilt,
         "restore_after_repair_s": restore2_s,
         "bytes_stored": ck.stats["bytes_stored"],
-        "launches": {"total": launches, "save_encode": after_save["encode"],
+        "launches": {"rs_bitmatmul": launches, "save_encode": after_save["encode"],
                      "restore_decode": after_restore["decode"] - after_save["decode"],
-                     "repair": {k: per_kind[k] - after_restore[k] for k in per_kind}},
+                     "repair": {k: per_kind[k] - after_restore[k] for k in per_kind},
+                     "pb_frontier": frontier_launches},
+        "pb_frontier_shapes": [list(s) for s in frontier_shapes],
         "host_peak_rss_GB": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
         "device_peak_GB": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("[main] " + json.dumps(report))
     return {"report": report, "issued": issued, "save_shapes": save_shapes,
-            "launches": launches}
+            "launches": launches, "frontier_launches": frontier_launches,
+            "frontier_shapes": frontier_shapes}
+
+
+# -- 6. timing ----------------------------------------------------------------
 
 
 def phase_timing(issued: list, seed: int) -> list[dict]:
-    """Kernel against plain version at every (R, K, B) the main path
-    launched: byte-equal, then timed (median of CUDA-event runs)."""
-    import numpy as np
-
+    """rs_bitmatmul against its plain version at every (R, K, B) the main
+    path launched: byte-equal, then timed (median of CUDA-event runs)."""
     from repro_torch.ec import gf256
     from repro_torch.kernels import ref, rs_bitmatmul
 
@@ -308,6 +713,53 @@ def phase_timing(issued: list, seed: int) -> list[dict]:
     return rows
 
 
+def _frontier_inputs(cluster, by_free, delta_t_days: float, target: float, B: int, L: int):
+    probs = np.zeros((B, L), dtype=np.float64)
+    fp = cluster.fail_probs(delta_t_days)[by_free][:L]
+    probs[:, : fp.shape[0]] = fp
+    return (torch.from_numpy(probs).cuda(),
+            torch.full((B,), target, dtype=torch.float64, device="cuda"))
+
+
+def phase_frontier_timing(main_shapes: list) -> list[dict]:
+    """pb_frontier against its plain version at the shapes the main path
+    launched (the save's own fail probabilities and target) and at the
+    decisions-at-scale shape (64 items, the freest rung(1025) nodes of the
+    10,000-node cluster): equal, then timed."""
+    from repro_torch.core import ClusterView, prefilter
+    from repro_torch.core.algorithms import Scheduler
+    from repro_torch.core.sc_kernel import _shape_plan
+    from repro_torch.kernels import pb_frontier, ref
+    from repro_torch.storage import make_node_set
+
+    most_used = ClusterView.from_nodes(make_node_set("most_used"))
+    big = scale_cluster(SCALE_NODES, 0)
+    cases = [("main", most_used, 30.0, 0.999, s) for s in main_shapes]
+    M = prefilter.sc_cap(1024)
+    S_pad, L_pad = _shape_plan(M, 1024)
+    cases.append(("scale", big, 365.0, 0.99, (SCALE_BATCH, S_pad, L_pad, M, L_pad + 1, "cuda")))
+    rows = []
+    for label, cluster, days, target, (B, S, L, L_live, W, dev) in cases:
+        if dev != "cuda":
+            continue
+        by_free = Scheduler._live_sorted(cluster, cluster.free_mb)
+        probs, t = _frontier_inputs(cluster, by_free, days, target, B, L)
+        got = pb_frontier.frontier(probs, t, S, L_live, W)
+        want = ref.pb_frontier_ref(probs, t, S, L_live, W)
+        err = int((got - want).abs().max())
+        if err:
+            raise AssertionError(f"pb_frontier != plain version at {(B, S, L, W)}")
+        ms = cuda_time_ms(lambda: pb_frontier.frontier(probs, t, S, L_live, W), reps=7)
+        plain_ms = cuda_time_ms(lambda: ref.pb_frontier_ref(probs, t, S, L_live, W),
+                                warmup=0, reps=1)
+        bound, by = frontier_bound_ms(got.cpu().numpy(), S, L_live, W)
+        rows.append({"at": label, "B": B, "S": S, "L": L, "L_live": L_live, "W": W,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "max_abs_err": err})
+        log("[timing] pb_frontier " + json.dumps(rows[-1]))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -316,34 +768,76 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    smi = phase_build()
-    phase_kernel_grid(args.seed)
-    phase_small_checkpoint(args.seed)
-    main_run = phase_main(args.seed)
-    rows = phase_timing(main_run["issued"], args.seed)
+    phase_s = {}
+
+    def timed(label, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
+    smi = timed("build", phase_build)
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=7, mp_context=spawn) as pool:
+        jobs = start_oracles(pool)
+        timed("kernel_grid", phase_kernel_grid, args.seed)
+        timed("frontier_grid", phase_frontier_grid, args.seed)
+        timed("small_checkpoint", phase_small_checkpoint, args.seed)
+        scale = timed("scale", phase_scale, jobs)
+    timed("lb_carry", phase_lb_carry)
+    timed("crossovers", phase_crossovers)
+    main_run = timed("main", phase_main, args.seed)
+    rows = timed("timing", phase_timing, main_run["issued"], args.seed)
+    frows = timed("frontier_timing", phase_frontier_timing, main_run["frontier_shapes"])
     # The headline shape is the save's widest encode wave.
     save = {(r8 // 8, k8 // 8, n * bb) for r8, k8, n, bb, _ in main_run["save_shapes"]}
     head = max((x for x in rows if (x["R"], x["K"], x["B"]) in save),
                key=lambda x: x["B"])
-    kernel = {
-        "name": "rs_bitmatmul",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rs_bitmatmul.cu",
-        "replaces": "src/repro/kernels/rs_bitmatmul.py:56",
-        "launches": main_run["launches"],
-        "max_abs_err": max(x["max_abs_err"] for x in rows),
-        "matches_plain": True,
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": None,
-        "shape": {"R": head["R"], "K": head["K"], "B": head["B"]},
-        "shapes": rows,
-    }
+    fhead = max((x for x in frows if x["at"] == "main"), key=lambda x: x["B"] * x["S"] * x["L"])
+    kernels = [
+        {
+            "name": "rs_bitmatmul",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rs_bitmatmul.cu",
+            "replaces": "src/repro/kernels/rs_bitmatmul.py:56",
+            "launches": main_run["launches"],
+            "max_abs_err": max(x["max_abs_err"] for x in rows),
+            "matches_plain": True,
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,
+            "shape": {"R": head["R"], "K": head["K"], "B": head["B"]},
+            "shapes": rows,
+        },
+        {
+            "name": "pb_frontier",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/pb_frontier.cu",
+            "replaces": "src/repro/core/sc_kernel.py:133 (in-jit DP of the XLA "
+                        "program _score_windows, not Pallas); "
+                        "src/repro/core/greedy_kernel.py:125",
+            "launches": main_run["frontier_launches"],
+            "max_abs_err": max(x["max_abs_err"] for x in frows),
+            "matches_plain": True,
+            "ms": fhead["ms"],
+            "plain_ms": fhead["plain_ms"],
+            "bound_ms": fhead["bound_ms"],
+            "bound_by": fhead["bound_by"],
+            "library_ms": None,
+            "shape": {k: fhead[k] for k in ("B", "S", "L", "L_live", "W")},
+            "shapes": frows,
+        },
+    ]
+    log("[summary] " + json.dumps({"cuts": CUTS, "phase_s": phase_s, "scale": {
+        k: {f: v[f] for f in ("batch_disagree", "committed_disagree",
+                              "batch_ms_per_decision_card",
+                              "scalar_ms_per_decision_oracle") if f in v}
+        for k, v in scale.items()}}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -138,7 +138,11 @@ class DRexCheckpointer:
         # auto_commit=False: the fabric is the byte-accounting authority —
         # occupancy updates when chunks actually land (fabric.put), not at
         # decision time.
-        self.engine = PlacementEngine(fabric.cluster, scheduler, auto_commit=False)
+        # A scheduler named here scores its place_many batches on the
+        # checkpointer's device, as the JAX package's does on its own.
+        self.engine = PlacementEngine(
+            fabric.cluster, scheduler, auto_commit=False, device=self.device
+        )
         self.scheduler = self.engine.scheduler
         self.policy = policy or CheckpointPolicy()
         self._manifests: dict[int, dict] = {}

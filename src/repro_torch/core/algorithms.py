@@ -1,5 +1,12 @@
-"""D-Rex SC (paper §4.4, Algorithm 2) and the static ``ec(K,P)`` family
-(§5.2.1): the schedulers of the checkpoint plane's main path.
+"""The four D-Rex schedulers (paper §4) and the SOTA baselines (§5.2).
+
+The JAX package's ``core/algorithms.py``, ported: the scalar oracles,
+the dispatch rule and the constants are copied (host numpy float64, so
+decisions are the reference's bit for bit); the batch scorers the JAX
+package jitted run as float64 torch on the scheduler's device
+(:mod:`repro_torch.core.sc_kernel`, ``lb_kernel``, ``greedy_kernel``),
+with the parity frontiers of D-Rex SC and the greedy baselines in the
+hand-written kernel :mod:`repro_torch.kernels.pb_frontier`.
 
 Every scheduler answers, for one item ``d`` arriving online, the question
 of Problem 1: choose ``(K_d, P_d, M_d)`` subject to the reliability
@@ -8,16 +15,22 @@ constraint (Eq. 3) and per-node capacity, optimizing storage and I/O.
 All schedulers see the cluster through :class:`repro_torch.core.types.ClusterView`
 and are purely functional over it (the caller — normally a
 :class:`repro_torch.core.engine.PlacementEngine` — commits the placement).
-Each algorithm registers itself with :mod:`repro_torch.core.registry`,
-declaring its capabilities, so the checkpoint plane never matches on
-name strings.
+Each algorithm registers itself with :mod:`repro_torch.core.registry`, declaring
+its capabilities (adaptive (K,P)?, may grow parity on reschedule?) so the
+simulator and checkpoint plane never match on name strings.
 
-This module is host numpy float64, copied from the JAX package's
-``core/algorithms.py`` so that decisions are bit-identical to the
-reference.  D-Rex SC decides through its scalar oracle only; the device
-scorer of the JAX package (``sc_kernel._score_windows``) and the other
-schedulers (D-Rex LB, the two greedy baselines, DAOS, RandomSpread) are
-not ported yet.
+The reliability feasibility question every prefix-greedy algorithm asks
+("min parity for the first n nodes of my sorted order?") is answered by
+one shared :class:`repro_torch.core.reliability.ParityFrontier` DP; under
+batched placement (``PlacementEngine.place_many``) the optional ``ctx``
+argument memoizes frontiers across items so the DP cost amortizes.
+
+**Devices.**  The kernel-backed schedulers (D-Rex SC, D-Rex LB and the
+two greedy baselines) take ``device=``: ``None`` means CUDA, and CUDA
+without a card raises.  The only reason they decide through the numpy
+oracle instead of the device scorer is the reference's node-count rule
+(:func:`_kernel_dispatch`) or ``use_kernel = False``; a device scorer
+that fails to build or launch raises, it never falls back.
 """
 
 from __future__ import annotations
@@ -27,7 +40,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch._device import resolve_device
+
 from . import constraints as constraints_mod
+from . import greedy_kernel, lb_kernel, prefilter, sc_kernel
 from .incremental import FreeOrderTracker, SaturationTracker
 from .registry import (
     get_spec,
@@ -35,7 +51,7 @@ from .registry import (
     register_scheduler_family,
     SchedulerCapabilities,
 )
-from .reliability import min_parity_for_target, ParityFrontier
+from .reliability import _AUTO_EXACT_LIMIT, min_parity_for_target, ParityFrontier
 from .types import (
     ClusterView,
     DataItem,
@@ -47,8 +63,13 @@ from .types import (
 
 __all__ = [
     "Scheduler",
+    "GreedyMinStorage",
+    "GreedyLeastUsed",
+    "DRexLB",
     "DRexSC",
     "StaticEC",
+    "DAOSAdaptive",
+    "RandomSpread",
     "SCHEDULER_NAMES",
     "saturation_score",
 ]
@@ -143,6 +164,759 @@ class Scheduler:
         return -1 if mp is None else mp
 
 
+def _kernel_dispatch(scheduler, cluster: ClusterView, batch: int) -> bool:
+    """The one kernel/scalar dispatch rule for kernel-backed schedulers,
+    the reference's with its constants: a single item needs at least
+    ``KERNEL_MIN_NODES`` live nodes for the device scorer; batches of
+    >= 4 items need only ``KERNEL_MIN_NODES_BATCH`` (0 for most
+    schedulers — GreedyLeastUsed's scalar scan is so cheap its scorer
+    only wins batched on large clusters).  Setting both to 0 forces the
+    device scorer everywhere (the equivalence tests do).  There is no
+    availability gate: a scorer that cannot run raises."""
+    if not scheduler.use_kernel:
+        return False
+    live = int(np.count_nonzero(cluster.alive))
+    if batch >= 4:
+        return live >= scheduler.KERNEL_MIN_NODES_BATCH
+    return live >= scheduler.KERNEL_MIN_NODES
+
+
+class _KernelSchedulerMixin:
+    """Kernel/scalar dispatch shared by the kernel-backed prefix
+    schedulers (the greedys on :mod:`repro_torch.core.greedy_kernel`,
+    D-Rex LB on :mod:`repro_torch.core.lb_kernel`).  Concrete classes
+    provide the scalar oracle (``_place_scalar``), the batched device
+    path (``_place_kernel``) and the ``KERNEL_MIN_NODES`` crossover."""
+
+    #: set to False to force the scalar numpy oracle.
+    use_kernel = True
+    #: live-node crossover for batched (>= 4 item) dispatch; 0 = batches
+    #: always use the device scorer (see :func:`_kernel_dispatch`).
+    KERNEL_MIN_NODES_BATCH = 0
+
+    def __init__(self, device=None):
+        #: where the batch scorer runs (``None`` means CUDA).
+        self.device = resolve_device(device)
+
+    def _kernel_wins(self, cluster: ClusterView, batch: int) -> bool:
+        return _kernel_dispatch(self, cluster, batch)
+
+    def place(
+        self, item: DataItem, cluster: ClusterView, ctx=None, constraints=None
+    ) -> Decision:
+        self.observe_item(item)
+        if self._kernel_wins(cluster, 1):
+            return self._place_kernel([item], cluster, ctx, constraints)[0]
+        return self._place_scalar(item, cluster, ctx, constraints)
+
+    def place_batch(
+        self,
+        items: Sequence[DataItem],
+        cluster: ClusterView,
+        ctx=None,
+        constraints=None,
+    ) -> list[Decision]:
+        """Score ``items`` against the *current* cluster snapshot in one
+        batched device call (pure; consumed by the engine's batched
+        ``place_many``, which re-scores items invalidated by a commit).
+        ``constraints`` (a :class:`PlacementConstraints`) restricts the
+        candidate order to the cap-admitted subsequence — only the
+        engine passes it, and only to ``topology_aware`` schedulers."""
+        if self._kernel_wins(cluster, len(items)):
+            return self._place_kernel(list(items), cluster, ctx, constraints)
+        return [self._place_scalar(it, cluster, ctx, constraints) for it in items]
+
+    def place_scalar(
+        self, item: DataItem, cluster: ClusterView, ctx=None, constraints=None
+    ) -> Decision:
+        """Reference numpy oracle (kept for equivalence tests)."""
+        self.observe_item(item)
+        return self._place_scalar(item, cluster, ctx, constraints)
+
+
+# ---------------------------------------------------------------------------
+# §4.1 GreedyMinStorage
+# ---------------------------------------------------------------------------
+
+
+@register_scheduler(
+    "greedy_min_storage",
+    adaptive=True,
+    supports_parity_growth=True,
+    batch_scoring=True,
+    topology_aware=True,
+)
+class GreedyMinStorage(_KernelSchedulerMixin, Scheduler):
+    """Minimize per-item storage footprint ``(size/K) * N`` s.t. reliability
+    (Eq. 4); mapping favors the fastest (write-bandwidth) nodes *among
+    those with room for the chunk* — once the fast nodes saturate the
+    selection slides to slower ones instead of failing (the paper's §5.4
+    observation that GreedyMinStorage keeps utilizing all nodes).
+
+    Two implementations of the same decision function: the scalar numpy
+    oracle (:meth:`place_scalar` — the Python fixed-point loop over K per
+    candidate N) and the device scorer
+    (:mod:`repro_torch.core.greedy_kernel`), which evaluates the fixed
+    point in closed form for every N at once wherever the bw-sorted
+    prefix fits the chunk, finishing capacity-tight rows with the same
+    :meth:`_fixed_point_row` the oracle runs.  ``place`` uses the device
+    scorer when the cluster clears ``KERNEL_MIN_NODES`` (batches of >= 4
+    items always do); ``place_batch`` scores many items sharing a
+    snapshot in one call.  Decisions are bit-for-bit the oracle's.
+    """
+
+    name = "greedy_min_storage"
+    #: below this many live nodes a single item takes the scalar oracle;
+    #: batches of >= 4 items use the device scorer regardless (the JAX
+    #: package's crossover, kept; the H100's is measured in PERF.md).
+    #: Set to 0 to force the device scorer (tests do).
+    KERNEL_MIN_NODES = 24
+
+    def _fixed_point_row(
+        self, n, by_bw, free, fail_all, size, target, ctx
+    ) -> Optional[Placement]:
+        # Fixed point over K for one N: the chunk size determines which
+        # nodes qualify (free >= chunk), which determines the mapping,
+        # which determines the min parity, which determines K. K only
+        # ever decreases, so this terminates in <= N steps (typically
+        # 1-2).  Shared verbatim by the scalar oracle's N-loop and the
+        # kernel's slow-row fallback.
+        k = n - 1
+        while k >= 1:
+            chunk = size / k
+            fitting = by_bw[free[by_bw] >= chunk]
+            if len(fitting) < n:
+                return None
+            mapping = fitting[:n]
+            mp = self._min_parity(fail_all[mapping], target, ctx)
+            if mp < 0:
+                return None
+            p_star = max(1, mp)  # the repository always keeps parity
+            k_new = n - p_star
+            if k_new < 1:
+                return None
+            if k_new >= k:
+                return Placement(
+                    k=k, p=n - k, node_ids=tuple(int(x) for x in mapping)
+                )
+            k = k_new
+        return None
+
+    # -- scalar oracle ------------------------------------------------------
+
+    def _place_scalar(
+        self, item: DataItem, cluster: ClusterView, ctx=None, constraints=None
+    ) -> Decision:
+        by_bw = self._apply_constraints(
+            self._live_sorted(cluster, cluster.write_bw), cluster, constraints
+        )
+        L = len(by_bw)
+        if L < 2:
+            return Decision(None, 0, "fewer than 2 live nodes")
+        fail_all = self._fail_probs(cluster, item, ctx)
+        free = cluster.free_mb
+
+        best: Optional[Placement] = None
+        best_cost = math.inf
+        considered = 0
+        for n in range(2, L + 1):
+            considered += 1
+            placement = self._fixed_point_row(
+                n, by_bw, free, fail_all, item.size_mb,
+                item.reliability_target, ctx,
+            )
+            if placement is None:
+                continue
+            cost = (item.size_mb / placement.k) * n
+            if cost < best_cost:
+                best_cost = cost
+                best = placement
+        if best is None:
+            return Decision(None, considered, "no (N,K) satisfies reliability+capacity")
+        return Decision(best, considered, "")
+
+    # -- vectorized path ----------------------------------------------------
+
+    def _place_kernel(
+        self, items: list[DataItem], cluster: ClusterView, ctx, constraints=None
+    ) -> list[Decision]:
+        by_bw = self._apply_constraints(
+            self._live_sorted(cluster, cluster.write_bw), cluster, constraints
+        )
+        L = len(by_bw)
+        if L < 2:
+            return [Decision(None, 0, "fewer than 2 live nodes") for _ in items]
+        # No top-M pre-filter: the (size/K)*N objective keeps improving as
+        # N grows (K grows with N), so a bw-sorted prefix slice can change
+        # the argmin — MinStorage always scores the full grid (counted so
+        # the scale lane's hit-rate columns show the bypass).
+        prefilter.record(self.name, "bypassed", len(items))
+        free = cluster.free_mb
+        free_bw = free[by_bw]
+        B = len(items)
+        fail_rows: list[np.ndarray] = []
+        probs_mat = np.empty((B, L), dtype=np.float64)
+        for row, item in enumerate(items):
+            fa = self._fail_probs(cluster, item, ctx)
+            fail_rows.append(fa)
+            probs_mat[row] = fa[by_bw]
+        # Host-side RNA frontier rows for mappings beyond the exact-DP
+        # limit (the oracle's min_parity auto-method switch); items
+        # sharing (fail probs, target) pay for a row once per batch.
+        rna_rows = np.full((B, L + 1), -1, dtype=np.int64)
+        if L > _AUTO_EXACT_LIMIT:
+            memo: dict[tuple[bytes, float], np.ndarray] = {}
+            for row, item in enumerate(items):
+                if ctx is not None:
+                    rna_rows[row] = ctx.rna_frontier(
+                        probs_mat[row], item.reliability_target, L
+                    )
+                    continue
+                key = (probs_mat[row].tobytes(), item.reliability_target)
+                got = memo.get(key)
+                if got is None:
+                    got = greedy_kernel.rna_frontier_row(
+                        probs_mat[row], item.reliability_target, L
+                    )
+                    memo[key] = got
+                rna_rows[row] = got
+        valid, slow, ks, ps, cost = greedy_kernel.min_storage_batch(
+            probs_mat,
+            np.array([it.size_mb for it in items], dtype=np.float64),
+            np.array([it.reliability_target for it in items], dtype=np.float64),
+            rna_rows,
+            free_bw,
+            device=self.device,
+        )
+        decisions = []
+        considered = L - 1  # the N-loop always runs 2..L
+        for row, item in enumerate(items):
+            c = cost[row]
+            slow_pl: dict[int, Placement] = {}
+            if slow[row].any():
+                # Capacity filter engaged: finish these N with the same
+                # fixed point the scalar oracle runs, then merge.
+                c = c.copy()
+                for i in np.nonzero(slow[row])[0]:
+                    n = int(i) + 1
+                    pl = self._fixed_point_row(
+                        n, by_bw, free, fail_rows[row], item.size_mb,
+                        item.reliability_target, ctx,
+                    )
+                    if pl is not None:
+                        slow_pl[n] = pl
+                        c[i] = (item.size_mb / pl.k) * n
+            best_i = int(np.argmin(c))
+            if not np.isfinite(c[best_i]):
+                decisions.append(
+                    Decision(
+                        None, considered, "no (N,K) satisfies reliability+capacity"
+                    )
+                )
+                continue
+            n = best_i + 1
+            if n in slow_pl:
+                decisions.append(Decision(slow_pl[n], considered, ""))
+            else:
+                decisions.append(
+                    Decision(
+                        Placement(
+                            k=int(ks[row, best_i]),
+                            p=int(ps[row, best_i]),
+                            node_ids=tuple(int(x) for x in by_bw[:n]),
+                        ),
+                        considered,
+                        "",
+                    )
+                )
+        return decisions
+
+
+# ---------------------------------------------------------------------------
+# §4.2 GreedyLeastUsed
+# ---------------------------------------------------------------------------
+
+
+@register_scheduler(
+    "greedy_least_used",
+    adaptive=True,
+    supports_parity_growth=True,
+    batch_scoring=True,
+    windowed_scoring=True,
+    topology_aware=True,
+)
+class GreedyLeastUsed(_KernelSchedulerMixin, Scheduler):
+    """Minimize ``K+P`` s.t. reliability (Eq. 5); nodes with the highest
+    free space get the chunks (then minimal parity among feasible).
+    ``K >= 2`` as in Alg. 1 — the paper's erasure-coding schedulers do not
+    degenerate to replication (only DAOS's explicit replication configs do).
+
+    The scalar numpy oracle (:meth:`place_scalar`) scans N upward with a
+    lazily-extended :class:`ParityFrontier`; the device scorer
+    (:mod:`repro_torch.core.greedy_kernel`) evaluates the whole
+    first-feasible-N scan as one masked DP, batched across items in
+    :meth:`place_batch`.
+
+    Declares ``windowed_scoring``: a successful decision is a pure
+    function of the free-desc order, the item, the failure probabilities
+    and the free space of the *scanned prefix* — which is exactly the
+    chosen mapping, since every probed N < N_chosen maps a sub-prefix of
+    it.  Decisions therefore carry ``window = node_ids``, and the
+    engine's dependency-aware rescoring may keep them across a commit
+    that neither touches the window nor perturbs the free-desc order
+    (see ``PlacementEngine._place_many_batched``).  Rejections scanned
+    every live node and carry no window (always re-scored).
+    """
+
+    name = "greedy_least_used"
+    #: the scalar scan stops at the first feasible N (typically < 10), so
+    #: the JAX package keeps single items on the oracle below this many
+    #: live nodes; kept as the reference's dispatch boundary (set it to 0
+    #: to force the device scorer everywhere).
+    KERNEL_MIN_NODES = 4096
+    #: the reference's crossover for batched calls, kept (the H100's is
+    #: measured in PERF.md, not applied).
+    KERNEL_MIN_NODES_BATCH = 192
+    #: prefix length the kernel scans: the first feasible N within the
+    #: cap is globally first-feasible, and items with none fall back to
+    #: the scalar oracle (bit-identical, just recomputed) — keeping the
+    #: batched DP O(batch * SCAN_CAP^2) instead of O(batch * L^2).
+    SCAN_CAP = 32
+
+    def __init__(self, device=None):
+        super().__init__(device)
+        #: incremental free-desc order across commit deltas (see
+        #: core/candidates); None forces the from-scratch argsort.
+        self._order_tracker: Optional[FreeOrderTracker] = FreeOrderTracker()
+
+    def observe_commit(self, node_ids, chunk_mb: float, cluster: ClusterView) -> None:
+        """Engine commit hook (see ``PlacementEngine._finalize``)."""
+        if self._order_tracker is not None:
+            self._order_tracker.observe_commit(node_ids, chunk_mb, cluster)
+
+    def observe_release(self, node_ids, chunk_mb: float, cluster: ClusterView) -> None:
+        """Engine release hook (release / abort_repair)."""
+        if self._order_tracker is not None:
+            self._order_tracker.observe_release(node_ids, chunk_mb, cluster)
+
+    def observe_churn(self, kind: str, node_ids, cluster: ClusterView) -> None:
+        """Membership-churn hook (fail / heal / join)."""
+        if self._order_tracker is not None:
+            self._order_tracker.observe_churn(kind, node_ids, cluster)
+
+    def _by_free(self, cluster: ClusterView) -> np.ndarray:
+        if self._order_tracker is None:
+            return self._live_sorted(cluster, cluster.free_mb)
+        return self._order_tracker.order(cluster)
+
+    def _place_scalar(
+        self, item: DataItem, cluster: ClusterView, ctx=None, constraints=None
+    ) -> Decision:
+        by_free = self._apply_constraints(
+            self._by_free(cluster), cluster, constraints
+        )
+        L = len(by_free)
+        if L < 2:
+            return Decision(None, 0, "fewer than 2 live nodes")
+        fail_all = self._fail_probs(cluster, item, ctx)
+        frontier = self._frontier(
+            fail_all[by_free], item.reliability_target, ctx
+        )
+
+        considered = 0
+        for n in range(2, L + 1):
+            considered += 1
+            mp = frontier.min_parity(n)
+            if mp < 0:
+                continue
+            p_star = max(1, mp)  # the repository always keeps parity
+            k = n - p_star
+            if k < 2:
+                continue
+            chunk = item.size_mb / k
+            mapping = by_free[:n]
+            if not self._fits(cluster, mapping, chunk):
+                continue
+            ids = tuple(int(x) for x in mapping)
+            return Decision(
+                Placement(k=k, p=p_star, node_ids=ids),
+                considered,
+                "",
+                window=ids,
+            )
+        return Decision(None, considered, "no N satisfies reliability+capacity")
+
+    def _place_kernel(
+        self, items: list[DataItem], cluster: ClusterView, ctx, constraints=None
+    ) -> list[Decision]:
+        by_free = self._apply_constraints(
+            self._by_free(cluster), cluster, constraints
+        )
+        L = len(by_free)
+        if L < 2:
+            return [Decision(None, 0, "fewer than 2 live nodes") for _ in items]
+        # The first-feasible-N rule makes SCAN_CAP a lossless top-M
+        # pre-filter (see core/prefilter): any N found within the prefix
+        # is the global answer, so kernel inputs are materialized over the
+        # cap slice only — decision cost scales with the cap, not L.
+        # Under constraints the slice keeps per-domain representatives
+        # (prefilter.domain_slice) so a spread width cannot be starved by
+        # the cap; it stays a free-descending subsequence, so the
+        # first-feasible scan and capacity logic are unchanged.
+        cap = min(L, self.SCAN_CAP)
+        if constraints is not None and not constraints.unconstrained:
+            by_free_c = prefilter.domain_slice(
+                by_free, cluster.rack, cluster.zone, cap, constraints, self.name
+            )
+            cap = len(by_free_c)
+        else:
+            by_free_c = by_free[:cap]
+        if cap < L:
+            prefilter.record(self.name, "engaged", len(items))
+        probs_mat = np.empty((len(items), cap), dtype=np.float64)
+        for row, item in enumerate(items):
+            probs_mat[row] = self._fail_probs(cluster, item, ctx)[by_free_c]
+        ok, ns, ks, ps = greedy_kernel.least_used_batch(
+            probs_mat,
+            np.array([it.size_mb for it in items], dtype=np.float64),
+            np.array([it.reliability_target for it in items], dtype=np.float64),
+            # free space of the cap slice only: index-then-subtract is
+            # bitwise free_mb[by_free_c] without the O(N) materialize
+            cluster.capacity_mb[by_free_c] - cluster.used_mb[by_free_c],
+            device=self.device,
+        )
+        decisions = []
+        for row, item in enumerate(items):
+            if not ok[row]:
+                if cap < L:
+                    # No feasible N within the scanned prefix: finish with
+                    # the scalar oracle (rare; bit-identical decision).
+                    prefilter.record(self.name, "fallback")
+                    decisions.append(
+                        self._place_scalar(item, cluster, ctx, constraints)
+                    )
+                else:
+                    decisions.append(
+                        Decision(None, L - 1, "no N satisfies reliability+capacity")
+                    )
+                continue
+            n = int(ns[row])
+            ids = tuple(int(x) for x in by_free_c[:n])
+            decisions.append(
+                Decision(
+                    Placement(k=int(ks[row]), p=int(ps[row]), node_ids=ids),
+                    n - 1,  # the scalar scan increments considered per N
+                    "",
+                    window=ids,
+                )
+            )
+        if cap < L:
+            prefilter.record(self.name, "accepted", int(np.count_nonzero(ok)))
+        return decisions
+
+
+# ---------------------------------------------------------------------------
+# §4.3 D-Rex LB (Algorithm 1)
+# ---------------------------------------------------------------------------
+
+
+@register_scheduler(
+    "drex_lb",
+    adaptive=True,
+    supports_parity_growth=True,
+    batch_scoring=True,
+    topology_aware=True,
+)
+class DRexLB(_KernelSchedulerMixin, Scheduler):
+    """Balance-penalty minimization; smallest feasible parity (Alg. 1).
+
+    Two implementations of the same decision function: the scalar numpy
+    oracle (:meth:`place_scalar` — the per-P scan below, penalties
+    vectorized over K) and the device scorer
+    (:mod:`repro_torch.core.lb_kernel`), which evaluates the full (K, P)
+    grid in one shot for every item of :meth:`place_batch`.
+
+    **Exactness policy** (see the lb_kernel module docstring): the
+    balance penalty's in-mapping sum is accumulated in plain
+    left-to-right prefix-sum order on both paths (``np.cumsum`` here, an
+    explicit loop carry on the device), and every other
+    order-sensitive quantity — ``f_avg``, the out-of-mapping suffix
+    sums, and the :class:`ParityFrontier` rows themselves — is a
+    host-computed numpy value the kernel consumes as an input, so kernel
+    decisions are bit-for-bit equal to this oracle with no fallback
+    regimes.
+
+    No ``windowed_scoring``: every score depends on ``f_avg`` — the mean
+    free space over *all* live nodes — so any commit anywhere shifts
+    every pending penalty and batched scores can never outlive a commit
+    (the engine's dependency-aware rescoring correctly invalidates them).
+
+    **Incremental rescoring under commit-heavy load**: the exactness
+    policy pins ``f_avg`` to numpy's pairwise mean over the free-desc
+    order, so the mean itself must be re-reduced after every commit —
+    but the *order* usually survives (a commit moves a few nodes down a
+    little), and with the order the O(L log L) argsort, the frontier
+    cache keys and the DP reuse all survive too.  A
+    :class:`~repro_torch.core.incremental.FreeOrderTracker` fed by the
+    engine's ``observe_commit`` hook keeps the order across commit
+    deltas with an O(p) adjacency check, leaving ``f_avg``/dev/suffix as
+    O(L) re-reductions over the same element order (bitwise identical to
+    the from-scratch path).
+    """
+
+    name = "drex_lb"
+    #: below this many live nodes a single item takes the (vectorized-
+    #: numpy) scalar oracle; batches of >= 4 items use the device scorer
+    #: regardless.  The JAX package's crossover, kept (the H100's is
+    #: measured in PERF.md, not applied).  Set to 0 to force the device
+    #: scorer (tests do).
+    KERNEL_MIN_NODES = 256
+    #: top-M candidate pre-filter (core/prefilter): above this many live
+    #: nodes the (K, P) grid runs over the freest-PREFILTER_CAP prefix
+    #: with a per-row exactness test and unfiltered fallback.  A shapes
+    #: rung so filtered pads land on shared buckets; False disables.
+    use_prefilter = True
+    PREFILTER_CAP = prefilter.lb_cap()
+
+    def __init__(self, device=None):
+        super().__init__(device)
+        #: incremental free-desc order across commit deltas; set to None
+        #: to force the from-scratch argsort (the exactness tests compare
+        #: both).
+        self._order_tracker: Optional[FreeOrderTracker] = FreeOrderTracker()
+
+    def observe_commit(self, node_ids, chunk_mb: float, cluster: ClusterView) -> None:
+        """Engine commit hook (see ``PlacementEngine._finalize``)."""
+        if self._order_tracker is not None:
+            self._order_tracker.observe_commit(node_ids, chunk_mb, cluster)
+
+    def observe_release(self, node_ids, chunk_mb: float, cluster: ClusterView) -> None:
+        """Engine release hook (release / abort_repair)."""
+        if self._order_tracker is not None:
+            self._order_tracker.observe_release(node_ids, chunk_mb, cluster)
+
+    def observe_churn(self, kind: str, node_ids, cluster: ClusterView) -> None:
+        """Membership-churn hook (fail / heal / join)."""
+        if self._order_tracker is not None:
+            self._order_tracker.observe_churn(kind, node_ids, cluster)
+
+    def _by_free(self, cluster: ClusterView) -> np.ndarray:
+        if self._order_tracker is None:
+            return self._live_sorted(cluster, cluster.free_mb)
+        return self._order_tracker.order(cluster)
+
+    @staticmethod
+    def _considered(L: int, p_found: int | None) -> int:
+        """Candidates the scalar per-(P, K) loop enumerates: for each
+        probed P it scans K = 2..L-P (``L - 1 - p`` candidates), stopping
+        after the first feasible P (or exhausting P = 1..L-1)."""
+        p_last = L - 1 if p_found is None else p_found
+        return p_last * (L - 1) - p_last * (p_last + 1) // 2
+
+    # -- scalar oracle ------------------------------------------------------
+
+    def _place_scalar(
+        self, item: DataItem, cluster: ClusterView, ctx=None, constraints=None
+    ) -> Decision:
+        by_free = self._apply_constraints(
+            self._by_free(cluster), cluster, constraints
+        )
+        L = len(by_free)
+        if L < 3:  # Alg. 1 needs K>=2 and P>=1
+            return Decision(None, 0, "fewer than 3 live nodes")
+        fail_all = self._fail_probs(cluster, item, ctx)
+        free_sorted = cluster.free_mb[by_free]
+        f_avg = float(free_sorted.mean())  # line 1
+        # |F(S_j) - F_avg| for every node once; penalties for out-of-mapping
+        # nodes are suffix sums over the sorted order (mapping is a prefix).
+        dev = np.abs(free_sorted - f_avg)
+        suffix = np.concatenate([np.cumsum(dev[::-1])[::-1], [0.0]])
+        # One frontier answers the (prefix, parity) feasibility question for
+        # every (K, P) pair: CDF_n(p) >= RT  <=>  min_parity(n) <= p.
+        frontier = self._frontier(
+            fail_all[by_free], item.reliability_target, ctx
+        )
+        mp_all = frontier.upto(L)
+
+        # lines 10-15 for every K at once: the in-mapping penalty of the
+        # (K, P) pair is the length-(K+P) prefix sum of the chunk-adjusted
+        # deviations, accumulated left-to-right (np.cumsum — the fixed
+        # summation order the kernel reproduces; see class docstring).
+        ks = np.arange(2, L)                       # K = 2..L-1
+        chunk_k = item.size_mb / ks.astype(np.float64)
+        pen = np.cumsum(
+            np.abs(free_sorted[None, :] - chunk_k[:, None] - f_avg), axis=1
+        )
+
+        for p in range(1, L):  # line 5
+            k_arr = ks[: L - p - 1]                # K = 2..L-P
+            if k_arr.size == 0:
+                continue
+            n_arr = k_arr + p
+            mp = mp_all[n_arr - 1]
+            feas = (
+                (mp >= 0)
+                & (mp <= p)
+                & (free_sorted[n_arr - 1] >= chunk_k[: k_arr.size])
+            )
+            if not np.any(feas):
+                continue
+            # line 22: stop at the smallest feasible P; best (strictly
+            # smallest penalty, earliest K on ties) K within it.
+            bp = np.where(
+                feas, pen[np.arange(k_arr.size), n_arr - 1] + suffix[n_arr],
+                np.inf,
+            )
+            k = int(k_arr[int(np.argmin(bp))])
+            n = k + p
+            return Decision(
+                Placement(
+                    k=k, p=p, node_ids=tuple(int(x) for x in by_free[:n])
+                ),
+                self._considered(L, p),
+                "",
+            )
+        return Decision(
+            None, self._considered(L, None),
+            "no (K,P) satisfies reliability+capacity",
+        )
+
+    # -- vectorized path ----------------------------------------------------
+
+    def _place_kernel(
+        self, items: list[DataItem], cluster: ClusterView, ctx, constraints=None
+    ) -> list[Decision]:
+        by_free = self._apply_constraints(
+            self._by_free(cluster), cluster, constraints
+        )
+        L = len(by_free)
+        if L < 3:
+            return [Decision(None, 0, "fewer than 3 live nodes") for _ in items]
+        cap = self.PREFILTER_CAP if self.use_prefilter else 0
+        if constraints is not None and 3 <= cap < L:
+            # LB's filtered grid consumes parity-frontier *prefix* rows,
+            # so the slice must stay a plain prefix (no representative
+            # promotion).  When the top-cap prefix of the admitted order
+            # cannot span the required width, run the grid unfiltered
+            # instead of starving the spread constraint.
+            sl = by_free[:cap]
+            if (
+                np.unique(cluster.rack[sl]).shape[0]
+                < min(constraints.min_racks, cap)
+                or np.unique(cluster.zone[sl]).shape[0]
+                < min(constraints.min_zones, cap)
+            ):
+                prefilter.record(self.name, "fallback", len(items))
+                cap = 0
+        if cap < 3 or cap >= L:  # lb_batch needs K>=2, P>=1 => m >= 3
+            return self._kernel_decisions(items, cluster, ctx, by_free, L, {})
+        # Top-M pre-filter (core/prefilter): run the (K, P) grid over the
+        # freest-M prefix; a row's answer is provably the full-grid answer
+        # iff the min parity of the whole M-prefix exceeds the P it found
+        # (frontier monotonicity makes every wider window infeasible at
+        # that P).  Rows failing the test re-run unfiltered — the lazily
+        # extended ParityFrontier makes that an incremental DP, not a
+        # restart.
+        prefilter.record(self.name, "engaged", len(items))
+        memo: dict[tuple[bytes, float], ParityFrontier] = {}
+        decisions = self._kernel_decisions(items, cluster, ctx, by_free, cap, memo)
+        fb = [i for i, d in enumerate(decisions) if d is None]
+        prefilter.record(self.name, "accepted", len(items) - len(fb))
+        if fb:
+            prefilter.record(self.name, "fallback", len(fb))
+            full = self._kernel_decisions(
+                [items[i] for i in fb], cluster, ctx, by_free, L, memo
+            )
+            for j, i in enumerate(fb):
+                decisions[i] = full[j]
+        return decisions
+
+    def _kernel_decisions(
+        self,
+        items: list[DataItem],
+        cluster: ClusterView,
+        ctx,
+        by_free: np.ndarray,
+        m: int,
+        memo: dict,
+    ) -> list[Optional[Decision]]:
+        """Grid-evaluate ``items`` over the freest-``m`` prefix of
+        ``by_free``.  When ``m < L`` (pre-filtered call) a row whose
+        sufficiency test fails yields ``None`` — the caller re-runs it
+        with ``m = L``."""
+        L = len(by_free)
+        filtered = m < L
+        free_sorted = cluster.free_mb[by_free]
+        # Order-sensitive global terms, host-computed exactly as the
+        # scalar oracle computes them (numpy pairwise mean / reversed
+        # cumsum); the device scorer consumes them as inputs.  f_avg and the
+        # suffix sums are cluster-global (all L nodes) even on the
+        # pre-filtered path — only the scanned grid shrinks to m.
+        f_avg = float(free_sorted.mean())
+        dev = np.abs(free_sorted - f_avg)
+        suffix = np.concatenate([np.cumsum(dev[::-1])[::-1], [0.0]])
+        # Host parity-frontier rows — the very DP the oracle consults
+        # (equivalence by construction; see the lb_kernel docstring).
+        # Items sharing (fail probs, target) pay for one frontier per
+        # batch; the BatchContext extends that across commit groups.
+        mp_rows = np.empty((len(items), m), dtype=np.int64)
+        for row, item in enumerate(items):
+            probs = self._fail_probs(cluster, item, ctx)[by_free]
+            if ctx is not None:
+                fr = ctx.frontier(probs, item.reliability_target)
+            else:
+                key = (probs.tobytes(), item.reliability_target)
+                fr = memo.get(key)
+                if fr is None:
+                    fr = ParityFrontier(probs, item.reliability_target)
+                    memo[key] = fr
+            mp_rows[row] = fr.upto(m)[:m]
+        ok, ks, ps = lb_kernel.lb_batch(
+            mp_rows,
+            np.array([it.size_mb for it in items], dtype=np.float64),
+            free_sorted[:m],
+            f_avg,
+            suffix[: m + 1],
+            device=self.device,
+        )
+        decisions: list[Optional[Decision]] = []
+        for row in range(len(items)):
+            if not ok[row]:
+                if filtered:
+                    # A wider-than-m window might still be feasible.
+                    decisions.append(None)
+                    continue
+                decisions.append(
+                    Decision(
+                        None, self._considered(L, None),
+                        "no (K,P) satisfies reliability+capacity",
+                    )
+                )
+                continue
+            k, p = int(ks[row]), int(ps[row])
+            if filtered:
+                # Sufficiency test: min parity of the full m-prefix (-1
+                # sentinel => > m-1, i.e. at least m) must strictly exceed
+                # the found P, else a wider window could be feasible at a
+                # P <= found (same P, lower penalty) and the slice is not
+                # provably exact.
+                mp_m = int(mp_rows[row, m - 1])
+                if (m if mp_m < 0 else mp_m) <= p:
+                    decisions.append(None)
+                    continue
+            decisions.append(
+                Decision(
+                    Placement(
+                        k=k, p=p,
+                        node_ids=tuple(int(x) for x in by_free[: k + p]),
+                    ),
+                    self._considered(L, p),
+                    "",
+                )
+            )
+        return decisions
+
+
 # ---------------------------------------------------------------------------
 # §4.4 D-Rex SC (Algorithm 2)
 # ---------------------------------------------------------------------------
@@ -182,13 +956,19 @@ class DRexSC(Scheduler):
     """System-capacity-aware scheduler (Alg. 2): Pareto front over
     {duration, storage, saturation} with saturation-weighted scoring.
 
-    :meth:`place`, :meth:`place_batch` and :meth:`place_scalar` all run
-    the numpy oracle: a Python loop over window starts, one
-    lazily-extended :class:`ParityFrontier` per start.  The JAX package
-    also scores the whole (starts x window-lengths) grid as one device
-    program; its decisions equal the oracle's
-    (tests/test_sc_vectorized.py), and the port's device scorer comes in
-    a later slice.
+    Two implementations of the same decision function:
+
+    * :meth:`place_scalar` — the reference numpy oracle: a Python loop
+      over window starts, one lazily-extended :class:`ParityFrontier`
+      per start.
+    * the device scorer (:mod:`repro_torch.core.sc_kernel`) — the whole
+      (starts x window-lengths) grid scored as one float64 torch
+      program over the parity-frontier kernel, for every item of
+      :meth:`place_batch` (consumed by ``PlacementEngine.place_many``).
+
+    ``place`` uses the device scorer when the cluster has at least
+    ``KERNEL_MIN_NODES`` live nodes (batches of >= 4 items always use
+    it); set ``use_kernel = False`` to force the oracle.
 
     **Partial rescoring after commits**: the saturation *baseline*
     (Alg. 2 line 11's sum over every live node) changes after a commit
@@ -205,9 +985,25 @@ class DRexSC(Scheduler):
 
     name = "drex_sc"
     MAX_MAPPINGS = 2**10
+    #: top-M candidate pre-filter (core/prefilter.sc_cap): above
+    #: sc_cap(MAX_MAPPINGS) live nodes, kernel inputs slice to the
+    #: freest-M prefix — exact by the start-major enumeration order.
+    #: False disables.
+    use_prefilter = True
+    #: set to False to force the scalar numpy oracle.
+    use_kernel = True
+    #: below this many live nodes a single item takes the numpy oracle;
+    #: batches use the device scorer regardless.  The JAX package's
+    #: crossover, kept (the H100's is measured in PERF.md, not applied).
+    #: Set to 0 to force the device scorer everywhere (tests do).
+    KERNEL_MIN_NODES = 16
+    #: batches of >= 4 items always use the kernel (see _kernel_dispatch).
+    KERNEL_MIN_NODES_BATCH = 0
 
-    def __init__(self, time_model: ECTimeModel | None = None):
+    def __init__(self, time_model: ECTimeModel | None = None, device=None):
         self.time_model = time_model or ECTimeModel()
+        #: where the batch scorer runs (``None`` means CUDA).
+        self.device = resolve_device(device)
         #: incremental rescoring state (None disables; exactness tests
         #: compare both paths).
         self._order_tracker: Optional[FreeOrderTracker] = FreeOrderTracker()
@@ -254,10 +1050,16 @@ class DRexSC(Scheduler):
             )
         return self._sat_tracker.f_base_sum(cluster, smin)
 
+    def _kernel_wins(self, cluster: ClusterView, batch: int) -> bool:
+        return _kernel_dispatch(self, cluster, batch)
+
     def place(
         self, item: DataItem, cluster: ClusterView, ctx=None, constraints=None
     ) -> Decision:
         self.observe_item(item)
+        if self._kernel_wins(cluster, 1):
+            smin = self.smin_mb if self.smin_mb is not None else 1.0
+            return self._place_kernel([item], [smin], cluster, ctx, constraints)[0]
         return self._place_scalar(item, cluster, ctx, constraints)
 
     def place_batch(
@@ -267,7 +1069,8 @@ class DRexSC(Scheduler):
         ctx=None,
         constraints=None,
     ) -> list[Decision]:
-        """Score ``items`` against the *current* cluster snapshot.
+        """Score ``items`` against the *current* cluster snapshot in one
+        batched device call.
 
         Pure: scheduler state (``smin_mb``) is not mutated — each item is
         scored with the running smallest-size anchor it would see under
@@ -283,6 +1086,8 @@ class DRexSC(Scheduler):
             if it.size_mb > 0:
                 run = it.size_mb if run is None else min(run, it.size_mb)
             smins.append(run if run is not None else 1.0)
+        if self._kernel_wins(cluster, len(items)):
+            return self._place_kernel(list(items), smins, cluster, ctx, constraints)
         saved = self.smin_mb
         try:
             out = []
@@ -296,10 +1101,122 @@ class DRexSC(Scheduler):
     def place_scalar(
         self, item: DataItem, cluster: ClusterView, ctx=None, constraints=None
     ) -> Decision:
-        """Reference numpy oracle (the name the JAX package's equivalence
-        tests call)."""
+        """Reference numpy oracle (kept for equivalence tests)."""
         self.observe_item(item)
         return self._place_scalar(item, cluster, ctx, constraints)
+
+    # -- vectorized path ----------------------------------------------------
+
+    def _place_kernel(
+        self,
+        items: list[DataItem],
+        smins: Sequence[float],
+        cluster: ClusterView,
+        ctx,
+        constraints=None,
+    ) -> list[Decision]:
+        by_free = self._apply_constraints(
+            self._by_free(cluster), cluster, constraints
+        )  # line 1
+        L = len(by_free)
+        if L < 2:
+            return [Decision(None, 0, "fewer than 2 live nodes") for _ in items]
+        live = cluster.live_ids()
+        # Saturation terms stay cluster-global under constraints: the
+        # 1/L anchor and the baseline sum describe the repository, not
+        # the admissible candidate set (L_live == L when unconstrained,
+        # keeping that path bit-identical).
+        L_live = len(live)
+        used, cap = cluster.used_mb, cluster.capacity_mb
+        # Top-M pre-filter (core/prefilter): window enumeration under the
+        # candidate budget is start-major, so whenever it engages
+        # (L > sc_cap >= budget + 1) no enumerated window ever reaches
+        # past the first budget+1 sorted nodes — slicing kernel inputs to
+        # M is exact with no per-row test.  Cluster-global terms (the
+        # saturation baseline/system saturation below and the 1/L scale,
+        # threaded through as n_live) still use the true L.
+        M = prefilter.sc_cap(self.MAX_MAPPINGS) if self.use_prefilter else 0
+        if 0 < M < L:
+            prefilter.record(self.name, "engaged", len(items))
+            prefilter.record(self.name, "accepted", len(items))
+            if constraints is not None and not constraints.unconstrained:
+                # Keep per-domain representatives in the slice (still a
+                # free-descending subsequence, so the start-major window
+                # logic below is unchanged).
+                by_free_k = prefilter.domain_slice(
+                    by_free, cluster.rack, cluster.zone, M, constraints,
+                    self.name,
+                )
+            else:
+                by_free_k = by_free[:M]
+        else:
+            by_free_k = by_free
+        Lk = len(by_free_k)
+        probs_mat = np.empty((len(items), Lk), dtype=np.float64)
+        for row, item in enumerate(items):
+            probs_mat[row] = self._fail_probs(cluster, item, ctx)[by_free_k]
+        # The saturation baseline and system saturation depend only on the
+        # item's smin anchor; batches rarely move the running min, so
+        # compute once per distinct value (numpy, bit-matching the oracle).
+        base_cache: dict[float, tuple[float, float]] = {}
+        fbase = np.empty(len(items))
+        ssat = np.empty(len(items))
+        for row, smin in enumerate(smins):
+            got = base_cache.get(smin)
+            if got is None:
+                f_base_sum = self._f_base_sum(cluster, smin, live, L_live)
+                sys_sat = float(
+                    saturation_score(
+                        np.array([used[live].sum()]),
+                        np.array([cap[live].sum()]),
+                        smin,
+                        L_live,
+                    )[0]
+                )
+                got = (f_base_sum, sys_sat)
+                base_cache[smin] = got
+            fbase[row], ssat[row] = got
+        tm = self.time_model
+        ok, s, n, k, p = sc_kernel.score_windows_batch(
+            probs_mat,
+            np.array([it.size_mb for it in items], dtype=np.float64),
+            np.array([it.reliability_target for it in items], dtype=np.float64),
+            np.asarray(smins, dtype=np.float64),
+            fbase,
+            ssat,
+            cluster.free_mb[by_free_k],
+            cluster.write_bw[by_free_k],
+            cluster.read_bw[by_free_k],
+            used[by_free_k],
+            cap[by_free_k],
+            self.MAX_MAPPINGS,
+            (tm.e0, tm.e_byte, tm.e_mult, tm.d0, tm.d_byte, tm.d_mult),
+            n_live=L_live,
+            device=self.device,
+        )
+        considered = min(L * (L - 1) // 2, self.MAX_MAPPINGS)
+        decisions = []
+        for row in range(len(items)):
+            if not ok[row]:
+                decisions.append(
+                    Decision(
+                        None, considered, "no mapping satisfies reliability+capacity"
+                    )
+                )
+                continue
+            s_r, n_r = int(s[row]), int(n[row])
+            decisions.append(
+                Decision(
+                    Placement(
+                        k=int(k[row]),
+                        p=int(p[row]),
+                        node_ids=tuple(int(x) for x in by_free_k[s_r : s_r + n_r]),
+                    ),
+                    considered,
+                    "",
+                )
+            )
+        return decisions
 
     # -- scalar oracle ------------------------------------------------------
 
@@ -491,18 +1408,106 @@ class StaticEC(Scheduler):
 
 
 # ---------------------------------------------------------------------------
+# §5.2.2 DAOS: EC configs + replication, least storage overhead meeting RT
+# ---------------------------------------------------------------------------
 
 
-#: The ported subset of the paper's nine algorithms, in the JAX package's
-#: canonical order (D-Rex SC and the static ``ec(K,P)`` configs).
+@register_scheduler("daos", adaptive=True)
+class DAOSAdaptive(Scheduler):
+    """Pick, among DAOS's predefined configs, the one meeting the
+    reliability target with the lowest storage overhead (paper §5.2.2).
+
+    Replication 2x/4x/6x is modeled in the erasure-coded representation as
+    K=1 with P = copies-1 (paper §3.1)."""
+
+    name = "daos"
+    # (K, P), ordered by storage overhead N/K ascending:
+    CONFIGS = [(8, 1), (8, 2), (4, 1), (4, 2), (1, 1), (1, 3), (1, 5)]
+
+    def place(self, item: DataItem, cluster: ClusterView, ctx=None) -> Decision:
+        self.observe_item(item)
+        by_bw = self._live_sorted(cluster, cluster.write_bw)
+        fail_all = self._fail_probs(cluster, item, ctx)
+        considered = 0
+        for k, p in sorted(self.CONFIGS, key=lambda kp: (kp[0] + kp[1]) / kp[0]):
+            considered += 1
+            n = k + p
+            chunk = item.size_mb / k
+            fitting = [int(i) for i in by_bw if cluster.free_mb[i] >= chunk]
+            if len(fitting) < n:
+                continue
+            mapping = tuple(fitting[:n])
+            mp = self._min_parity(
+                fail_all[list(mapping)], item.reliability_target, ctx
+            )
+            if mp < 0 or mp > p:
+                continue
+            return Decision(Placement(k=k, p=p, node_ids=mapping), considered, "")
+        return Decision(None, considered, "no DAOS config meets target")
+
+
+# ---------------------------------------------------------------------------
+# Extra baseline (ours): uniform random spread — ablation control
+# ---------------------------------------------------------------------------
+
+
+@register_scheduler("random_spread", randomized=True)
+class RandomSpread(Scheduler):
+    """Uniformly random feasible mapping with HDFS-style EC(6,3); control
+    baseline for ablations (not in the paper).
+
+    RNG state: the mapping for an item is drawn from a generator seeded
+    with ``(seed, item_id)``, so ``place`` is a pure function of
+    ``(seed, item, cluster)`` — repeated calls for the same item return
+    the same mapping, and batched ``place_many`` matches sequential
+    ``place`` exactly (no generator state threaded between calls).
+    """
+
+    name = "random_spread"
+
+    def __init__(self, k: int = 6, p: int = 3, seed: int = 0):
+        self.k, self.p = k, p
+        self.seed = seed
+
+    def place(self, item: DataItem, cluster: ClusterView, ctx=None) -> Decision:
+        self.observe_item(item)
+        n = self.k + self.p
+        chunk = item.size_mb / self.k
+        ids = [int(i) for i in cluster.live_ids() if cluster.free_mb[i] >= chunk]
+        if len(ids) < n:
+            return Decision(None, 1, "not enough nodes with capacity")
+        # Mask to non-negative 64-bit words: default_rng rejects negative
+        # entropy, and DataItem does not forbid sentinel/negative ids.
+        mask = (1 << 64) - 1
+        rng = np.random.default_rng((self.seed & mask, item.item_id & mask))
+        mapping = tuple(int(x) for x in rng.choice(ids, size=n, replace=False))
+        fail_all = self._fail_probs(cluster, item, ctx)
+        mp = self._min_parity(
+            fail_all[list(mapping)], item.reliability_target, ctx
+        )
+        if mp < 0 or mp > self.p:
+            return Decision(None, 1, "fixed (K,P) cannot meet reliability target")
+        return Decision(Placement(k=self.k, p=self.p, node_ids=mapping), 1, "")
+
+
+# ---------------------------------------------------------------------------
+
+
+#: Canonical paper ordering (the 9 algorithms every benchmark sweeps).
 SCHEDULER_NAMES = [
     "drex_sc",
+    "drex_lb",
+    "greedy_min_storage",
+    "greedy_least_used",
     "ec(3,2)",
     "ec(4,2)",
     "ec(6,3)",
+    "daos",
+    "random_spread",
 ]
 
-# Materialize the static-EC configs in the registry so
-# ``scheduler_names()`` lists them out of the box.
+# Materialize the paper's static-EC configs in the registry so
+# ``scheduler_names()`` lists all nine out of the box.
 for _name in SCHEDULER_NAMES:
     get_spec(_name)
+

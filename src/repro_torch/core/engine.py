@@ -194,6 +194,8 @@ class PlacementEngine:
 
     ``scheduler`` may be a registered name (resolved through the
     registry) or an instance; ``cluster`` may be a view or a node list.
+    ``device`` goes to a kernel-backed scheduler resolved by name (``None``
+    means CUDA); an instance keeps its own.
     With ``auto_commit=True`` (default) accepted placements are committed
     to the view; the checkpoint plane runs with ``auto_commit=False``
     because its fabric accounts for the bytes as chunks actually land.
@@ -206,10 +208,11 @@ class PlacementEngine:
         *,
         auto_commit: bool = True,
         constraints: Optional[PlacementConstraints] = None,
+        device=None,
         **scheduler_kwargs,
     ):
         if isinstance(scheduler, str):
-            scheduler = create_scheduler(scheduler, **scheduler_kwargs)
+            scheduler = create_scheduler(scheduler, device=device, **scheduler_kwargs)
         elif scheduler_kwargs:
             raise TypeError("scheduler kwargs only apply to name resolution")
         if not isinstance(cluster, ClusterView):

@@ -62,13 +62,15 @@ class SchedulerCapabilities:
     #: decisions identical to sequential ``place`` while the cluster is
     #: unchanged.  Consumed by ``PlacementEngine.place_many`` (which
     #: re-scores items invalidated by a commit); never match on names.
-    #: Declared by D-Rex SC (its ``place_batch`` runs the scalar oracle in
-    #: this port; the JAX package scores the batch on the device).
+    #: Declared by D-Rex SC (core/sc_kernel), both greedy baselines
+    #: (core/greedy_kernel) and D-Rex LB (core/lb_kernel), which score the
+    #: batch on their device; the scalar paths survive as the equivalence
+    #: oracles (``place_scalar``).
     batch_scoring: bool = False
     #: consumes :class:`~repro_torch.core.types.PlacementConstraints`: ``place``
     #: / ``place_batch`` accept a ``constraints=`` keyword and build their
-    #: candidate orders through ``core.constraints.constrained_order``,
-    #: so per-domain caps hold by construction
+    #: candidate orders through ``core.constraints.constrained_order`` (and
+    #: ``prefilter.domain_slice``), so per-domain caps hold by construction
     #: and the engine's swap post-pass only ever has to enforce spread.
     #: Non-declaring schedulers never receive the keyword; the engine
     #: repairs their mappings with the post-pass instead.
@@ -205,10 +207,15 @@ def get_spec(name: str) -> SchedulerSpec:
     return spec
 
 
-def create_scheduler(name: str, **kwargs):
+def create_scheduler(name: str, device=None, **kwargs):
     """Instantiate a scheduler by registered name (the factory behind the
-    old ``make_scheduler``)."""
-    return get_spec(name).factory(**kwargs)
+    old ``make_scheduler``).  ``device`` goes to the kernel-backed
+    schedulers — those whose factory takes a ``device`` argument (``None``
+    means CUDA) — and is not used by the host-only ones."""
+    factory = get_spec(name).factory
+    if "device" in inspect.signature(factory).parameters:
+        kwargs["device"] = device
+    return factory(**kwargs)
 
 
 def scheduler_names() -> list[str]:

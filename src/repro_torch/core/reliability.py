@@ -12,10 +12,12 @@ Implements:
   * ``pr_avail`` — availability of an item with ``P`` parity chunks on a
     mapping, and the reliability constraint check of Eq. (3).
 
-All entry points are numpy/float64 (the online scheduler is sequential
-control-plane code), copied from the JAX package so that every oracle
-keeps its own summation order: the port's placements are held equal to
-the reference's, and those orders decide ties at ulp distance.
+The scalar entry points are numpy/float64 (the online scheduler is
+sequential control-plane code), copied from the JAX package so that
+every oracle keeps its own summation order: the port's placements are
+held equal to the reference's, and those orders decide ties at ulp
+distance.  ``batch_pr_avail_exact`` is the batched float64 torch variant
+for scoring many candidate mappings at once.
 """
 
 from __future__ import annotations
@@ -24,8 +26,12 @@ import math
 from typing import Iterable, Literal, Sequence
 
 import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
 
 __all__ = [
+    "batch_pr_avail_exact",
     "pr_failure",
     "poisson_binomial_cdf",
     "pr_avail",
@@ -223,7 +229,8 @@ class ParityFrontier:
         distribution in lockstep, answering every ``(start,
         window-length)`` pair in ``O(n_starts * L^2)`` instead of one
         fresh DP per start.  This is the numpy reference twin of the
-        JAX package's device DP for D-Rex SC's window enumeration: the property tests cross-check it against
+        CUDA kernel :mod:`repro_torch.kernels.pb_frontier` (D-Rex SC's
+        window enumeration): the property tests cross-check it against
         brute-force enumeration and against :meth:`upto`, pinning both
         implementations of the suffix-frontier recurrence.
 
@@ -350,3 +357,32 @@ def max_parity_needed(target: float, worst_fail_prob: float) -> int:
     if worst_fail_prob >= 1.0:
         return 10**9
     return max(1, math.ceil(math.log(max(1e-300, 1.0 - target)) / math.log(worst_fail_prob)))
+
+
+def batch_pr_avail_exact(fail_probs_matrix, parity: int, device=None) -> torch.Tensor:
+    """Exact Poisson-binomial CDF at ``parity`` for a batch of mappings,
+    each row one mapping, as float64 torch (rows may be padded with 0.0 —
+    a never-failing pseudo-node does not change the CDF at any k).
+
+    A tensor input runs on its own device; an array runs on ``device``
+    (``None`` means CUDA).  The DP step multiplies and adds in separate
+    ops, as the JAX package's ``batch_pr_avail_exact`` does; the final
+    sum over ``parity + 1`` entries is torch's reduction, which may
+    differ from XLA's in the last ulp.
+    """
+    if isinstance(fail_probs_matrix, torch.Tensor):
+        pm = fail_probs_matrix.to(torch.float64)
+    else:
+        pm = torch.as_tensor(
+            np.asarray(fail_probs_matrix, dtype=np.float64), device=resolve_device(device)
+        )
+    b, n = pm.shape
+    k = min(parity, n)
+    dp = torch.zeros((b, k + 1), dtype=torch.float64, device=pm.device)
+    dp[:, 0] = 1.0
+    for col in range(n):
+        p = pm[:, col, None]
+        nd = dp * (1.0 - p)
+        nd[:, 1:] = nd[:, 1:] + dp[:, :-1] * p
+        dp = nd
+    return torch.clamp(dp.sum(dim=1), max=1.0)

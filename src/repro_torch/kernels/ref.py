@@ -1,4 +1,4 @@
-"""Plain PyTorch oracle for the GF(2^8) coding kernels.
+"""Plain PyTorch versions of the port's hand-written kernels.
 
 Integer tensor ops that run on the CPU and on CUDA alike:
 
@@ -10,6 +10,10 @@ Integer tensor ops that run on the CPU and on CUDA alike:
   product, in the same per-bit-plane XOR form the kernel uses.  The
   wrapper takes it for CPU tensors, and the chip smoke holds the kernel
   against it on the card.
+* :func:`pb_frontier_ref` is the plain version of the parity-frontier
+  kernel in :mod:`repro_torch.kernels.pb_frontier`: the torch twin of
+  ``ParityFrontier.upto_many``, a loop over window ends with an explicit
+  left-to-right running sum for the CDF.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ __all__ = [
     "encode_ref",
     "decode_ref",
     "bitmatmul_ref",
+    "pb_frontier_ref",
 ]
 
 #: (exp, log) tables per device: (512,) uint8 doubled exp, (256,) int64 log.
@@ -130,4 +135,69 @@ def bitmatmul_ref(bit_matrix, data_chunks) -> torch.Tensor:
         for j in range(8):
             bit = (data[kk] >> j) & 1                       # (B,) in {0, 1}
             out ^= coef[:, kk, j : j + 1] * bit[None, :]
+    return out
+
+
+def pb_frontier_ref(
+    probs: torch.Tensor,
+    targets: torch.Tensor,
+    n_starts: int,
+    L_live: int,
+    width: int,
+) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.pb_frontier.frontier`.
+
+    ``probs (B, L) f64``, ``targets (B,) f64`` -> ``mp (B, S, L) int64``:
+    ``mp[b, s, i]`` is the smallest parity whose CDF over the window
+    ``probs[b, s..i]`` reaches ``targets[b]`` (-1 where none ``<= i - s``
+    does, ``i < s`` or ``i >= L_live``), from a DP row of ``width``
+    entries.  The arithmetic is numpy's, operation for operation: the DP
+    step multiplies and adds in separate ops (no fused op), and the CDF
+    is ``np.cumsum``'s left-to-right running sum, one ``add`` per term
+    written into ``runs`` (never ``torch.cumsum``, which re-associates on
+    CUDA).  A running sum of non-negative terms is monotone, so the first
+    term that reaches the target is ``argmax(cumsum >= target)``.  Each
+    step sums as many terms as the previous step needed and extends
+    (doubling) only while some row has not reached its target: one host
+    sync per step, not one per term.
+    """
+    B, L = probs.shape
+    S, W = int(n_starts), int(width)
+    dev = probs.device
+    out = torch.full((B, S, L), -1, dtype=torch.int64, device=dev)
+    dp = torch.zeros((B, S, W), dtype=torch.float64, device=dev)
+    dp[:, :, 0] = 1.0
+    runs = torch.empty((B, S, W), dtype=torch.float64, device=dev)
+    q_all = 1.0 - probs                  # the oracle's (1 - p), elementwise
+    starts = torch.arange(S, device=dev)
+    cols = torch.arange(W, device=dev)
+    target = targets[:, None, None]
+    hint = 1
+    for i in range(min(L, int(L_live))):
+        a = min(i + 1, S)                # starts 0..a-1 have a window [s..i]
+        top = min(i + 1, W - 1)          # entries above are zero and stay so
+        head = dp[:, :a, : top + 1]
+        nd = head * q_all[:, i, None, None]
+        nd[:, :, 1:] += head[:, :, :-1] * probs[:, i, None, None]
+        dp[:, :a, : top + 1] = nd
+        jlim = min(i, W - 1)             # last admissible parity (start 0)
+        jmax = (i - starts[:a]).clamp(max=W - 1)
+        run = runs[:, :a]
+        run[:, :, 0] = dp[:, :a, 0]
+        done = 0
+        want = min(jlim, hint)
+        while True:
+            for j in range(done + 1, want + 1):
+                torch.add(run[:, :, j - 1], dp[:, :a, j], out=run[:, :, j])
+            done = want
+            reach = (run[:, :, : done + 1] >= target) & (
+                cols[: done + 1] <= jmax[:, None]
+            )
+            hit = reach.any(dim=2)
+            if done >= jlim or not bool((~hit & (jmax > done)).any()):
+                break
+            want = min(jlim, 2 * done + 1)
+        hint = max(hint, done)
+        first = torch.argmax(reach.to(torch.int32), dim=2)
+        out[:, :a, i] = torch.where(hit, first, -1)
     return out

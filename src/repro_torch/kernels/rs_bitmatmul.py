@@ -23,7 +23,8 @@ stays in registers and shared memory.
 
 **Build.**  ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared
 library with a plain C interface, at first use, into ``_build/`` beside
-this file (listed in ``.gitignore``), loaded with ``ctypes``.
+this file (listed in ``.gitignore``; :mod:`repro_torch.kernels.nvcc`),
+loaded with ``ctypes``.
 
 **Dispatch.**  A CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain version :func:`repro_torch.kernels.ref.bitmatmul_ref`.
@@ -34,25 +35,17 @@ not count).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 import threading
 
 import torch
 
+from . import nvcc as _nvcc
 from . import ref as _ref
 
 __all__ = ["gf_bitmatmul", "build", "launches", "reset_launches", "SOURCE"]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "rs_bitmatmul.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
 
 #: kernel launches since import or the last :func:`reset_launches`.
 launches = 0
@@ -66,37 +59,10 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = pathlib.Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-
-
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile the kernel (once per source content) and return the
     library path.  ``verbose`` adds ``-Xptxas -v`` and prints its report."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"librs_bitmatmul-{digest}.so"
-    if lib_path.exists() and not verbose:
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, lib_path)
-    return lib_path
+    return _nvcc.build(SOURCE, verbose=verbose)
 
 
 def _library() -> ctypes.CDLL:

@@ -6,8 +6,9 @@ repair plans must be *equal* — integers equal, floats bit-equal — when
 both packages see the same inputs.  The JAX side's ``drex_sc`` is driven
 both ways it decides: its default (the jitted scorer wherever its
 dispatch rule picks it, e.g. non-committing batches) and
-``use_kernel=False`` (its numpy oracle).  The port decides through the
-oracle it copies.
+``use_kernel=False`` (its numpy oracle).  The port runs on the CPU
+(``device="cpu"``) under the same dispatch rule, so its batches go
+through its torch scorer and the parity-frontier kernel's plain version.
 """
 
 import dataclasses
@@ -234,7 +235,7 @@ def _record_key(r):
 
 def _engines(name, jview, tview, auto_commit, ref_kernel):
     je = jcore.PlacementEngine(jview, name, auto_commit=auto_commit)
-    te = tcore.PlacementEngine(tview, name, auto_commit=auto_commit)
+    te = tcore.PlacementEngine(tview, name, auto_commit=auto_commit, device="cpu")
     if not ref_kernel:
         je.scheduler.use_kernel = False
     return je, te
@@ -322,7 +323,7 @@ class TestPlacement:
         def run(core, node_set, kernel=True):
             eng = core.PlacementEngine(
                 core.ClusterView.from_nodes(node_set("most_used")), "drex_sc",
-                auto_commit=False,
+                auto_commit=False, **({"device": "cpu"} if core is tcore else {}),
             )
             if not kernel:
                 eng.scheduler.use_kernel = False
@@ -356,7 +357,8 @@ class TestPlacement:
             jv, "drex_sc", constraints=jcore.PlacementConstraints(max_per_rack=2)
         )
         te = tcore.PlacementEngine(
-            tv, "drex_sc", constraints=tcore.PlacementConstraints(max_per_rack=2)
+            tv, "drex_sc", constraints=tcore.PlacementConstraints(max_per_rack=2),
+            device="cpu",
         )
         _compare_place_many(je, te, seed=11)
 
