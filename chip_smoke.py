@@ -10,7 +10,16 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    rung(1025), node_pad(10 000)}, S in {1, 8, L-1} and targets {0.5, 0.99,
    0.999, 0.9999999} plus one set exactly to a CDF value the plain
    version computes; equal also to the port's numpy
-   ``ParityFrontier.upto_many`` (cuts below).
+   ``ParityFrontier.upto_many`` (cuts below).  Then at realistic parities
+   (~70): the scale lane's fail probabilities (the freest sc_cap(1024) =
+   1096 nodes of the 10,000-node cluster, 365 days), B = 4, S in {1, 8},
+   W in {L + 1, 65, 33}, targets 0.99, 0.999 and an ulp-tight one (the
+   plain version's running sum at j = mp of the last step that reaches
+   0.999) with its two ``nextafter`` neighbours; at W = L + 1 also with
+   launches that force the register variant's rarer block paths (row
+   replays, lane-order scans), and on rows whose parities pass 127 (the
+   full-width rerun).  Every variant of the kernel's launch plan runs and
+   is named.
 3. **Small checkpoint, every scheduler**: for each of the nine scheduler
    names a small state saved on the card must give the same fabric bytes
    as the port's CPU path, and a restore after a data-row loss must be
@@ -35,7 +44,8 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    before and read just after.
 6. **Timing** of each kernel and its plain version, with CUDA events, at
    the shapes the main path launched (and, for ``pb_frontier``, at the
-   decisions-at-scale shape).
+   decisions-at-scale shape, the committed stream's shape and a wide row
+   on the shared-memory variant), with the variant and ns per DP step.
 
 Every phase raises on failure.  The last line is the device record; the
 line before it lists the kernels.  Without a CUDA device the script
@@ -47,9 +57,11 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import dataclasses
 import json
 import multiprocessing
 import pathlib
+import re
 import resource
 import statistics
 import subprocess
@@ -107,6 +119,9 @@ CUTS = [
     "pb_frontier grid: S = L-1 at L = node_pad(10 000) left out (a 4 GB plain "
     "DP); upto_many compared at S <= 8 for L >= rung(1025) and at S = 1 on two "
     "rows for L = node_pad(10 000)",
+    "pb_frontier's wide timing row (all 10,000 nodes, shared-memory variant) "
+    "uses 7-day fail probabilities (parities ~15, not ~540 at 365 days): the "
+    "plain version it is timed against runs one torch op per CDF term",
 ]
 
 #: the card every phase runs on (a CPU rehearsal of phases 3-4 at a tiny
@@ -172,14 +187,57 @@ def frontier_bound_ms(mp: np.ndarray, S: int, L_live: int, W: int) -> tuple[floa
 # -- 1. build ------------------------------------------------------------------
 
 
+def _kernel_name(mangled: str) -> str:
+    """``pb_frontier_regs<36>`` from an Itanium-mangled kernel name: the
+    first length-prefixed identifier outside the anonymous namespace, and
+    its integer template argument."""
+    pos = 0
+    while True:
+        m = re.compile(r"(\d+)").search(mangled, pos)
+        if not m:
+            return mangled
+        n, start = int(m.group(1)), m.end()
+        ident = mangled[start:start + n]
+        if n >= 3 and len(ident) == n and re.fullmatch(r"[A-Za-z_]\w*", ident) \
+                and not ident.startswith("_GLOBAL"):
+            targ = re.match(r"ILi(\d+)E", mangled[start + n:])
+            return f"{ident}<{targ.group(1)}>" if targ else ident
+        pos = start + n if len(ident) == n else m.end()
+
+
+def ptxas_summary(report: str) -> list[tuple]:
+    """(kernel, registers, spill store bytes, spill load bytes, static
+    shared bytes) per entry function of an ``-Xptxas -v`` report."""
+    rows, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)), *spills, int(smem.group(1)) if smem else 0))
+            name, spills = None, (0, 0)
+    return rows
+
+
 def phase_build() -> str:
-    from repro_torch.kernels import pb_frontier, rs_bitmatmul
+    from repro_torch.kernels import nvcc, pb_frontier, rs_bitmatmul
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
         libs = list(pool.map(lambda b: b(verbose=True),
                              (rs_bitmatmul.build, pb_frontier.build)))
     log(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
+    for stem, report in nvcc.REPORTS.items():
+        for name, regs, spill_st, spill_ld, smem in ptxas_summary(report):
+            log(f"[build] ptxas {stem}: {name}: {regs} registers, spill stores "
+                f"{spill_st} B, spill loads {spill_ld} B, static shared {smem} B")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -233,6 +291,46 @@ def _cdf_value(probs: torch.Tensor, n: int, j: int) -> float:
     return float(run)
 
 
+def frontier_variant(n_rows: int, width: int) -> str:
+    """The launch-plan variant ``frontier`` takes on this card, e.g.
+    ``registers<36>`` or ``shared``."""
+    from repro_torch.kernels import pb_frontier
+
+    pl = pb_frontier.plan(n_rows, width, *pb_frontier.device_limits(torch.device("cuda", 0)))
+    return f"registers<{pl.chunk}>" if pl.variant == "registers" else pl.variant
+
+
+def scale_fail_probs(delta_t_days: float = 365.0, n: int | None = None) -> np.ndarray:
+    """Fail probabilities of the scale lane's cluster (seed 0) in D-Rex SC's
+    free-descending order: the first ``n`` nodes (default the pre-filter's
+    ``sc_cap(1024)`` = 1096)."""
+    from repro_torch.core import prefilter
+    from repro_torch.core.algorithms import Scheduler
+
+    cluster = scale_cluster(SCALE_NODES, 0)
+    by_free = Scheduler._live_sorted(cluster, cluster.free_mb)
+    n = prefilter.sc_cap(1024) if n is None else n
+    return np.array(cluster.fail_probs(delta_t_days)[by_free][:n], dtype=np.float64)
+
+
+def tight_target(fp: np.ndarray, width: int, target: float) -> tuple[float, int]:
+    """An ulp-tight target and its parity: the running-sum CDF at j = mp of
+    the last step (start 0, DP ``width`` entries, numpy's arithmetic) whose
+    minimum parity for ``target`` exists."""
+    dp = np.zeros(width)
+    dp[0] = 1.0
+    found = (float("nan"), -1)
+    for i, p in enumerate(fp):
+        nd = dp * (1.0 - p)
+        nd[1:] += dp[:-1] * p
+        dp = nd
+        cs = np.cumsum(dp[: min(i, width - 1) + 1])
+        hit = np.flatnonzero(cs >= target)
+        if hit.size:
+            found = (float(cs[hit[0]]), int(hit[0]))
+    return found
+
+
 def phase_frontier_grid(seed: int) -> int:
     from repro_torch.core import shapes
     from repro_torch.core.reliability import ParityFrontier
@@ -241,6 +339,7 @@ def phase_frontier_grid(seed: int) -> int:
     rng = np.random.default_rng(seed + 1)
     n_cases = 0
     per_L = {}
+    variants = set()
     for L in (2, 3, 17, 64, 65, shapes.rung(1025), shapes.node_pad(10_000)):
         t0 = time.perf_counter()
         # Fail probabilities small enough that the min parity stays a few
@@ -259,6 +358,7 @@ def phase_frontier_grid(seed: int) -> int:
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"pb_frontier != plain version at L={L} S={S}")
+            variants.add(frontier_variant(5 * S, L + 1))
             n_cases += 1
             if (L >= shapes.rung(1025) and S > 8) or (big and S > 1):
                 continue
@@ -274,10 +374,100 @@ def phase_frontier_grid(seed: int) -> int:
         per_L[L] = round(time.perf_counter() - t0, 2)
     log(f"[kernel] pb_frontier int64-equal to the plain version on {n_cases} "
         f"(L, S) cases x 5 targets (one ulp-tight), and to upto_many; s per L {per_L}")
+    n_cases += frontier_realistic_cases(variants)
+    if not {v.split("<")[0] for v in variants} >= {"registers", "shared"}:
+        raise AssertionError(f"a launch-plan variant was not exercised: {sorted(variants)}")
+    log(f"[kernel] pb_frontier variants exercised: {sorted(variants)}")
+    return n_cases
+
+
+def frontier_realistic_cases(variants: set) -> int:
+    """The kernel at realistic parities, truncated and not: the scale
+    lane's fail probabilities, B = 4, S in {1, 8}, W in {L + 1, 65, 33},
+    targets 0.99, 0.999, an ulp-tight one and its two neighbours; each
+    call int64-equal to the plain version, and S = 1 at W = L + 1 equal
+    to ``upto_many``."""
+    from repro_torch.core.reliability import ParityFrontier
+    from repro_torch.kernels import pb_frontier, ref
+
+    t0 = time.perf_counter()
+    fp = scale_fail_probs()
+    L = fp.shape[0]
+    probs = torch.from_numpy(np.tile(fp, (5, 1))).cuda()
+    n_cases, report = 0, {}
+    for W in (L + 1, 65, 33):
+        tight, mp = tight_target(fp, W, 0.999)
+        tg = [0.99, 0.999, tight, float(np.nextafter(tight, -np.inf)),
+              float(np.nextafter(tight, np.inf))]
+        t = torch.tensor(tg, dtype=torch.float64, device="cuda")
+        want = ref.pb_frontier_ref(probs, t, 8, L, W)  # row s = 0 is the S = 1 call
+        for S in (1, 8):
+            for rows in ([0, 1, 2, 3], [4, 0, 1, 2]):
+                got = pb_frontier.frontier(probs[rows], t[rows], S, L, W)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want[rows, :S]):
+                    raise AssertionError(
+                        f"pb_frontier != plain version at scale-lane parities, "
+                        f"W={W} S={S} targets {[tg[r] for r in rows]}")
+                n_cases += 1
+            variants.add(frontier_variant(4 * S, W))
+        if W == L + 1:
+            n_cases += frontier_forced_paths(probs[:4], t[:4], want[:4], L, W)
+            w0 = want[:, 0].cpu().numpy()
+            for b, target in enumerate(tg):
+                up = ParityFrontier(fp, target).upto_many(n_starts=1)[0, :L]
+                if not np.array_equal(w0[b], up):
+                    raise AssertionError(f"plain version != upto_many at target {target!r}")
+        report[W] = {"tight_parity": mp, "max_parity": int(want.max()),
+                     "variant": frontier_variant(4, W)}
+    n_cases += frontier_full_width_rows(variants)
+    log(f"[kernel] pb_frontier int64-equal to the plain version at scale-lane parities "
+        f"on {n_cases} (W, S, targets) calls (B=4, L={L}; 0.99, 0.999, an ulp-tight "
+        f"target and its nextafter neighbours; at W=L+1 also staged K of 9, 41 and 1 "
+        f"forcing replays and lane-order blocks) and on rows with parities past 127 "
+        f"(full-width rerun), upto_many equal at W=L+1: {report}; "
+        f"{time.perf_counter() - t0:.2f} s")
     return n_cases
 
 
 # -- 3. small checkpoint, every scheduler -------------------------------------
+
+
+def frontier_forced_paths(probs, t, want, L: int, W: int) -> int:
+    """The register variant's rarer block paths, forced through a launch
+    with a small staged K: guard 0 lets blocks stage past their parities
+    (lanes replay the row), a K of 41 with the default guard sends later
+    blocks to the step-by-step lane-order scan, and K = 1 does both."""
+    from repro_torch.kernels import pb_frontier
+
+    base = pb_frontier.plan(4 * 8, W, *pb_frontier.device_limits(torch.device("cuda", 0)))
+    for stage_k, guard in ((9, 0), (41, pb_frontier.STAGE_GUARD), (1, 0)):
+        forced = dataclasses.replace(base, stage_k=stage_k, guard=guard,
+                                     shared_bytes=base.rows_per_block * 256 * stage_k)
+        got = pb_frontier.frontier(probs, t, 8, L, W, launch=forced)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"pb_frontier != plain version with {forced}")
+    return 3
+
+
+def frontier_full_width_rows(variants: set) -> int:
+    """Rows whose parities pass 127 (fail probabilities 0.3-0.6 over 300
+    nodes): the register variant's 128-entry first pass cannot settle them
+    and the row runs again at full width."""
+    from repro_torch.kernels import pb_frontier, ref
+
+    rng = np.random.default_rng(7)
+    probs = torch.from_numpy(rng.uniform(0.3, 0.6, size=(2, 300))).cuda()
+    t = torch.tensor([0.99, 0.999], dtype=torch.float64, device="cuda")
+    got = pb_frontier.frontier(probs, t, 4, 300, 301)
+    want = ref.pb_frontier_ref(probs, t, 4, 300, 301)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or int(want.max()) < 128:
+        raise AssertionError(f"pb_frontier full-width rows: equal {torch.equal(got, want)}, "
+                             f"max parity {int(want.max())}")
+    variants.add(frontier_variant(8, 301))
+    return 1
 
 
 def phase_small_checkpoint(seed: int) -> None:
@@ -721,12 +911,31 @@ def _frontier_inputs(cluster, by_free, delta_t_days: float, target: float, B: in
             torch.full((B,), target, dtype=torch.float64, device="cuda"))
 
 
+def cuda_time_once(fn) -> tuple:
+    """``(fn(), ms)`` of one run on the current stream (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+#: retention of the wide timing row: a week keeps its parities small (~15
+#: over 10,000 nodes), since the plain version it is timed against runs one
+#: torch op per CDF term and a host sync per step.
+WIDE_DAYS = 7.0
+
+
 def phase_frontier_timing(main_shapes: list) -> list[dict]:
     """pb_frontier against its plain version at the shapes the main path
-    launched (the save's own fail probabilities and target) and at the
+    launched (the save's own fail probabilities and target), at the
     decisions-at-scale shape (64 items, the freest rung(1025) nodes of the
-    10,000-node cluster): equal, then timed."""
-    from repro_torch.core import ClusterView, prefilter
+    10,000-node cluster), at the committed stream's shape (one item) and on
+    a wide row (all 10,000 nodes, the shared-memory variant): equal, then
+    timed, with the variant and ns per DP step."""
+    from repro_torch.core import ClusterView, prefilter, shapes
     from repro_torch.core.algorithms import Scheduler
     from repro_torch.core.sc_kernel import _shape_plan
     from repro_torch.kernels import pb_frontier, ref
@@ -738,6 +947,9 @@ def phase_frontier_timing(main_shapes: list) -> list[dict]:
     M = prefilter.sc_cap(1024)
     S_pad, L_pad = _shape_plan(M, 1024)
     cases.append(("scale", big, 365.0, 0.99, (SCALE_BATCH, S_pad, L_pad, M, L_pad + 1, "cuda")))
+    cases.append(("committed", big, 365.0, 0.99, (1, S_pad, L_pad, M, L_pad + 1, "cuda")))
+    Lw = shapes.node_pad(SCALE_NODES)
+    cases.append(("wide", big, WIDE_DAYS, 0.99, (4, 1, Lw, SCALE_NODES, Lw + 1, "cuda")))
     rows = []
     for label, cluster, days, target, (B, S, L, L_live, W, dev) in cases:
         if dev != "cuda":
@@ -745,17 +957,16 @@ def phase_frontier_timing(main_shapes: list) -> list[dict]:
         by_free = Scheduler._live_sorted(cluster, cluster.free_mb)
         probs, t = _frontier_inputs(cluster, by_free, days, target, B, L)
         got = pb_frontier.frontier(probs, t, S, L_live, W)
-        want = ref.pb_frontier_ref(probs, t, S, L_live, W)
+        want, plain_ms = cuda_time_once(lambda: ref.pb_frontier_ref(probs, t, S, L_live, W))
         err = int((got - want).abs().max())
         if err:
             raise AssertionError(f"pb_frontier != plain version at {(B, S, L, W)}")
         ms = cuda_time_ms(lambda: pb_frontier.frontier(probs, t, S, L_live, W), reps=7)
-        plain_ms = cuda_time_ms(lambda: ref.pb_frontier_ref(probs, t, S, L_live, W),
-                                warmup=0, reps=1)
         bound, by = frontier_bound_ms(got.cpu().numpy(), S, L_live, W)
         rows.append({"at": label, "B": B, "S": S, "L": L, "L_live": L_live, "W": W,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                     "max_abs_err": err})
+                     "variant": frontier_variant(B * S, W), "max_parity": int(got.max()),
+                     "ms": ms, "ns_per_step": ms * 1e6 / L_live, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "max_abs_err": err})
         log("[timing] pb_frontier " + json.dumps(rows[-1]))
     return rows
 

@@ -17,13 +17,15 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["BUILD_DIR", "BASE_FLAGS", "build", "nvcc"]
+__all__ = ["BUILD_DIR", "BASE_FLAGS", "REPORTS", "build", "nvcc"]
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 BASE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+#: the last ``-Xptxas -v`` report of each source, by file stem.
+REPORTS: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -40,7 +42,7 @@ def nvcc() -> str:
 def build(source: pathlib.Path, flags: tuple = (), verbose: bool = False) -> pathlib.Path:
     """Compile ``source`` (once per source content and flags) and return
     the library path.  ``verbose`` adds ``-Xptxas -v`` and prints its
-    report."""
+    report (kept in :data:`REPORTS`)."""
     all_flags = (*BASE_FLAGS, *flags)
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(all_flags).encode()
@@ -58,6 +60,7 @@ def build(source: pathlib.Path, flags: tuple = (), verbose: bool = False) -> pat
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
     if verbose:
+        REPORTS[source.stem] = proc.stderr
         print(proc.stderr, end="")
     os.replace(tmp, lib_path)
     return lib_path
