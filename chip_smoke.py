@@ -7,9 +7,9 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 2. **Kernels against their plain versions** on the card.
    ``rs_bitmatmul``: byte-equal over a grid of unaligned widths and (K, R)
    up to 16.  ``pb_frontier``: int64-equal over L in {2, 3, 17, 64, 65,
-   rung(1025), node_pad(10 000)}, S in {1, 8, L-1} and targets {0.5, 0.99,
-   0.999, 0.9999999} plus one set exactly to a CDF value the plain
-   version computes; equal also to the port's numpy
+   rung(1025), node_pad(10 000)}, S in {1, 8, L-1} (cuts below) and
+   targets {0.5, 0.99, 0.999, 0.9999999} plus one set exactly to a CDF
+   value the plain version computes; equal also to the port's numpy
    ``ParityFrontier.upto_many`` (cuts below).  Then at realistic parities
    (~70): the scale lane's fail probabilities (the freest sc_cap(1024) =
    1096 nodes of the 10,000-node cluster, 365 days), B = 4, S in {1, 8},
@@ -24,7 +24,27 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    names a small state saved on the card must give the same fabric bytes
    as the port's CPU path, and a restore after a data-row loss must be
    bit-exact.
-4. **Decisions at scale**: the 10,000-node heterogeneous cluster and the
+4. **The simulator at cluster scale** (``[sim]``): ``Simulator(nodes,
+   "drex_sc", cfg)`` at its default device over the scale lane's 10,000
+   nodes and 256 MEVA items, seeds 0 and 1, through a weighted-random and
+   a named failure, a 157-node rack kill, a join and a heal, with 1 MB/s
+   repair lanes; every ``SimResult`` field, every stored placement and
+   the ``repair_log`` digest must equal the numpy oracle's run.  Then
+   Fig. 12's 10-node D-Rex SC run, equal to the CPU's.
+5. **The placement service** (``[serve]``): ``PlacementFrontier`` over an
+   engine built by name at its default device — serve_load's 100-node
+   lane (600 MEVA items at 60, 250 and 1,500 items/s and a churn run, the
+   four adaptive schedulers) and D-Rex SC on the 10,000-node cluster
+   (256 items at 250 items/s, with and without churn); placements
+   digest, reject, repair and loss counts equal to the numpy oracle's,
+   and at reject-free rates the placements of a per-item ``place`` loop
+   on the card.  No window may return with card work still queued.
+   The oracles of phases 4-6 run in worker processes while the card
+   works.  Then ``pb_frontier`` is held against its plain version at
+   every shape the [sim] and [serve] runs launched it with (the shape
+   census, reset before each run), and every launch-plan variant they
+   took must have been checked.
+6. **Decisions at scale**: the 10,000-node heterogeneous cluster and the
    1-400 MB item generator of the repo's scale lane, seeds 0 and 1.  For
    ``drex_sc``, ``drex_lb`` and ``greedy_least_used`` with the device path
    forced, ``place_batch`` of 64 items on the card must equal
@@ -33,7 +53,7 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    rule must equal the port's CPU oracle path.  ``greedy_min_storage`` is held the
    same way on a 1,000-node cluster from the same generator.  The CPU
    oracles run in worker processes while the card works.
-5. **The main path at real size**: the 24 bf16 parameter leaves of
+7. **The main path at real size**: the 24 bf16 parameter leaves of
    RWKV6-1.6B (3.20 GB, filled from ``--seed`` on the card) are saved
    through D-Rex SC on the ``most_used`` node set with the default
    checkpoint policy, D-Rex SC scoring the save's groups on the card; the
@@ -42,7 +62,7 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    restored and checked bit-exact; ``repair`` runs and the state is
    restored and checked again.  Every launch count is set to 0 just
    before and read just after.
-6. **Timing** of each kernel and its plain version, with CUDA events, at
+8. **Timing** of each kernel and its plain version, with CUDA events, at
    the shapes the main path launched (and, for ``pb_frontier``, at the
    decisions-at-scale shape, the committed stream's shape and a wide row
    on the shared-memory variant), with the variant and ns per DP step.
@@ -122,9 +142,13 @@ CUTS = [
     "pb_frontier's wide timing row (all 10,000 nodes, shared-memory variant) "
     "uses 7-day fail probabilities (parities ~15, not ~540 at 365 days): the "
     "plain version it is timed against runs one torch op per CDF term",
+    "sim_at_scale stores 256 items of the MEVA trace, not its 4,157 (the numpy "
+    "oracle it is held against takes ~0.16-0.2 s an item at 10,000 nodes)",
+    "serve_at_scale serves 256 MEVA items, not serve_load's 600, for the same "
+    "oracle's sake",
 ]
 
-#: the card every phase runs on (a CPU rehearsal of phases 3-4 at a tiny
+#: the card every phase runs on (a CPU rehearsal of phases 3-6 at a tiny
 #: size sets this to "cpu"; the script itself always runs on "cuda").
 DEV = "cuda"
 SCALE_NODES = 10_000
@@ -331,7 +355,9 @@ def tight_target(fp: np.ndarray, width: int, target: float) -> tuple[float, int]
     return found
 
 
-def phase_frontier_grid(seed: int) -> int:
+def phase_frontier_grid(seed: int) -> set:
+    """The kernel against its plain version over the grid; returns the
+    launch plans it exercised."""
     from repro_torch.core import shapes
     from repro_torch.core.reliability import ParityFrontier
     from repro_torch.kernels import pb_frontier, ref
@@ -378,7 +404,7 @@ def phase_frontier_grid(seed: int) -> int:
     if not {v.split("<")[0] for v in variants} >= {"registers", "shared"}:
         raise AssertionError(f"a launch-plan variant was not exercised: {sorted(variants)}")
     log(f"[kernel] pb_frontier variants exercised: {sorted(variants)}")
-    return n_cases
+    return variants
 
 
 def frontier_realistic_cases(variants: set) -> int:
@@ -505,7 +531,7 @@ def phase_small_checkpoint(seed: int) -> None:
         "restore after a data-row loss bit-exact")
 
 
-# -- 4. decisions at scale ----------------------------------------------------
+# -- 6. decisions at scale ----------------------------------------------------
 
 
 def scale_cluster(n_nodes: int, seed: int):
@@ -549,18 +575,26 @@ def _rkey(r) -> tuple:
     return r.item_id, nodes, r.reason, r.committed
 
 
+def oracle_scheduler(name: str):
+    """``name`` on the CPU, deciding through its numpy oracle only."""
+    from repro_torch.core import create_scheduler
+
+    sched = create_scheduler(name, device="cpu")
+    sched.use_kernel = False
+    return sched
+
+
 def oracle_job(kind: str, name: str, n_nodes: int, seed: int, lo: int, hi: int):
     """CPU oracle decisions in a worker process: ``scalar`` runs
     ``place_scalar`` on items ``lo..hi`` of one snapshot (the running
     smallest-size anchor of items ``0..lo`` observed first); ``committed``
     runs a committed ``place_many`` of the first ``hi`` items through the
     numpy oracle."""
-    from repro_torch.core import BatchContext, PlacementEngine, create_scheduler
+    from repro_torch.core import BatchContext, PlacementEngine
 
     cluster = scale_cluster(n_nodes, seed)
     items = scale_items(hi, seed + 1)
-    sched = create_scheduler(name, device="cpu")
-    sched.use_kernel = False
+    sched = oracle_scheduler(name)
     t0 = time.perf_counter()
     if kind == "scalar":
         for it in items[:lo]:
@@ -722,8 +756,7 @@ def phase_crossovers() -> dict:
             card = create_scheduler(name, device=DEV)
             card.KERNEL_MIN_NODES = 0
             card.KERNEL_MIN_NODES_BATCH = 0
-            oracle = create_scheduler(name, device="cpu")
-            oracle.use_kernel = False
+            oracle = oracle_scheduler(name)
             card.place(items[0], cluster)  # warm-up
             row = {"nodes": n}
             for label, sched in (("card", card), ("oracle", oracle)):
@@ -743,12 +776,424 @@ def phase_crossovers() -> dict:
     return out
 
 
-# -- 5. the main path ---------------------------------------------------------
+# -- 4-5. the simulator and the placement service ------------------------------
+
+
+#: sim_at_scale: the MEVA items a run stores, the named victim (failed on
+#: day 40, healed on day 60) and the rack killed on day 50.
+SIM_ITEMS, SIM_VICTIM, SIM_RACK = 256, 4321, 5
+#: serve_lane: benchmarks/serve_load.py's configuration.
+SERVE_NODES, SERVE_ITEMS, SERVE_RATES, SERVE_SEED = 100, 600, (60.0, 250.0, 1500.0), 11
+SERVE_CFG = {"max_batch": 32, "max_wait_s": 0.05, "queue_capacity": 96}
+#: serve_at_scale: drex_sc on the 10,000-node cluster.
+SERVE_SCALE_ITEMS, SERVE_SCALE_RATE = 256, 250.0
+ADAPTIVE = ("greedy_min_storage", "greedy_least_used", "drex_lb", "drex_sc")
+#: path -> the (B, S, L, L_live, W, device) pb_frontier shapes its runs
+#: issued (the shape census, reset just before each run).
+PATH_SHAPES: dict[str, set] = collections.defaultdict(set)
+
+
+def entry_device():
+    """The ``device`` the new phases give the port's entry points: ``None``,
+    their default, which is the card (a CPU rehearsal passes ``"cpu"``)."""
+    return None if DEV == "cuda" else DEV
+
+
+def stream_idle() -> bool:
+    """True when the card has no queued work (always on a CPU rehearsal)."""
+    return DEV != "cuda" or torch.cuda.current_stream().query()
+
+
+def scale_nodes(n_nodes: int, seed: int) -> list:
+    """The scale lane's cluster as ``StorageNode``s: capacity, occupancy,
+    bandwidths, AFR, rack ``i % 64`` and zone ``i % 8``."""
+    from repro_torch.core import StorageNode
+
+    c = scale_cluster(n_nodes, seed)
+    return [
+        StorageNode(node_id=i, capacity_mb=float(c.capacity_mb[i]),
+                    write_bw=float(c.write_bw[i]), read_bw=float(c.read_bw[i]),
+                    annual_failure_rate=float(c.afr[i]), used_mb=float(c.used_mb[i]),
+                    rack=int(c.rack[i]), zone=int(c.zone[i]))
+        for i in range(n_nodes)
+    ]
+
+
+def joining_node(node_id: int, capacity_mb: float):
+    from repro_torch.core import StorageNode
+
+    return StorageNode(node_id=node_id, capacity_mb=capacity_mb, write_bw=200.0,
+                       read_bw=300.0, annual_failure_rate=0.01)
+
+
+def sim_config(seed: int, n_nodes: int):
+    """sim_at_scale's churn: a weighted-random failure, a named one, a
+    157-node rack kill, a join and a heal, with 1 MB/s repair lanes."""
+    from repro_torch.storage import SimConfig
+
+    return SimConfig(
+        failure_schedule=((20.0, -1), (40.0, SIM_VICTIM)),
+        rack_failure_schedule=((50.0, SIM_RACK),),
+        node_join_schedule=((55.0, joining_node(n_nodes, 5e4)),),
+        node_heal_schedule=((60.0, SIM_VICTIM),),
+        repair_bw_mbps=1.0, measure_overhead=True, seed=seed,
+    )
+
+
+def fig12_setup():
+    """Fig. 12's drex_sc run (tests/test_simulator.py ``_fig12_run``) at RT
+    0.9 with seven failures and 0.01 MB/s repair lanes."""
+    from repro_torch.storage import SimConfig, make_node_set, make_trace
+
+    nodes = make_node_set("most_unreliable", 0.001)
+    cap = sum(n.capacity_mb for n in nodes)
+    items = make_trace("meva", seed=1, total_mb=cap * 0.15, reliability=0.9)
+    schedule = tuple((70.0 * (i + 1) / 8, -1) for i in range(7))
+    return nodes, items, SimConfig(failure_schedule=schedule, seed=1, repair_bw_mbps=0.01)
+
+
+def sim_fingerprint(sim, res) -> dict:
+    """Every ``SimResult`` field but the measured wall times, the stored
+    items' (k, p, nodes) and the ``repair_log`` digest of
+    tests/test_simulator.py."""
+    import hashlib
+
+    log_text = repr([(round(d, 9), i, m) for d, i, m in sim.repair_log]).encode()
+    return {
+        "stored_mb": res.stored_mb, "total_mb": res.total_mb, "n_stored": res.n_stored,
+        "n_failed_writes": res.n_failed_writes, "failed_item_ids": res.failed_item_ids,
+        "dropped_mb": res.dropped_mb, "throughput_mbps": res.throughput_mbps,
+        "time_breakdown": res.time_breakdown,
+        "per_node_used_mb": hashlib.sha256(res.per_node_used_mb.tobytes()).hexdigest(),
+        "used_mb_at_failure": sorted(res.used_mb_at_failure.items()),
+        "n_node_failures": res.n_node_failures,
+        "n_repairs_planned": res.n_repairs_planned,
+        "n_repairs_completed": res.n_repairs_completed,
+        "n_repairs_aborted": res.n_repairs_aborted,
+        "repaired_mb": res.repaired_mb, "repair_read_mb": res.repair_read_mb,
+        "repair_log": hashlib.sha256(log_text).hexdigest(),
+        "placements": [(s.item.item_id, s.placement.k, s.placement.p,
+                        tuple(int(n) for n in s.placement.node_ids))
+                       for s in res.stored_items],
+    }
+
+
+def sim_disagreements(a: dict, b: dict) -> tuple[int, list]:
+    keys = [k for k in a if k != "placements" and a[k] != b[k]]
+    pa, pb = a["placements"], b["placements"]
+    return len(keys) + sum(x != y for x, y in zip(pa, pb)) + abs(len(pa) - len(pb)), keys
+
+
+def sim_job(kind: str, seed: int):
+    """A simulator run on the port's numpy oracles in a worker: ``scale``
+    is sim_at_scale, ``fig12`` the paper's Fig. 12 run."""
+    from repro_torch.storage import Simulator, make_trace
+
+    if kind == "scale":
+        nodes = scale_nodes(SCALE_NODES, seed)
+        items, cfg = make_trace("meva", seed=seed, n_items=SIM_ITEMS), sim_config(seed, SCALE_NODES)
+    else:
+        nodes, items, cfg = fig12_setup()
+    sim = Simulator(nodes, oracle_scheduler("drex_sc"), cfg)
+    t0 = time.perf_counter()
+    res = sim.run(items)
+    return sim_fingerprint(sim, res), time.perf_counter() - t0, res.sched_overhead_s
+
+
+def serve_cluster(lane: str):
+    """serve_lane: benchmarks/table2_overhead.py's 100-node cluster;
+    serve_at_scale: the scale lane's cluster, seed 0."""
+    from repro_torch.core import ClusterView, StorageNode
+
+    if lane == "scale":
+        return scale_cluster(SCALE_NODES, 0)
+    rng = np.random.default_rng(SERVE_NODES)
+    return ClusterView.from_nodes([
+        StorageNode(node_id=i, capacity_mb=float(rng.uniform(5e6, 2e7)),
+                    write_bw=float(rng.uniform(100, 250)),
+                    read_bw=float(rng.uniform(100, 400)),
+                    annual_failure_rate=float(rng.uniform(0.003, 0.05)))
+        for i in range(SERVE_NODES)
+    ])
+
+
+def poisson_trace(n_items: int, rate: float, seed: int = SERVE_SEED) -> list:
+    """benchmarks/serve_load.py ``_poisson_trace``: the MEVA trace with
+    exponential inter-arrivals at ``rate`` items/s."""
+    from repro_torch.storage import make_trace
+
+    base = make_trace("meva", seed=seed, n_items=n_items)
+    rng = np.random.default_rng((seed, int(rate * 1000)))
+    at = np.cumsum(rng.exponential(1.0 / rate, size=n_items))
+    return [dataclasses.replace(it, arrival_time=float(at[i])) for i, it in enumerate(base)]
+
+
+def serve_events(lane: str, rate: float, churn: bool) -> list:
+    """Arrivals, plus serve_load's churn shape when asked: fail at 0.30 and
+    0.55 of the horizon, a join at 0.70 and a heal of the first victim at
+    0.85.  serve_lane fails nodes 3 and 7; serve_at_scale two nodes drawn
+    (seed 11) from the 64 freest, where D-Rex SC's windows start."""
+    from repro_torch.core.algorithms import Scheduler
+    from repro_torch.serve.placement import arrival_events, churn_events
+
+    n_items = SERVE_SCALE_ITEMS if lane == "scale" else SERVE_ITEMS
+    events = arrival_events(poisson_trace(n_items, rate))
+    if not churn:
+        return events
+    if lane == "scale":
+        c = scale_cluster(SCALE_NODES, 0)
+        freest = Scheduler._live_sorted(c, c.free_mb)[:64]
+        a, b = (int(x) for x in np.random.default_rng(SERVE_SEED).choice(freest, 2, replace=False))
+        joiner = joining_node(SCALE_NODES, 5e4)
+    else:
+        a, b, joiner = 3, 7, joining_node(SERVE_NODES, 1.2e7)
+    horizon = n_items / rate
+    return events + churn_events(
+        failure_schedule=((0.30 * horizon, a), (0.55 * horizon, b)),
+        node_join_schedule=((0.70 * horizon, joiner),),
+        node_heal_schedule=((0.85 * horizon, a),),
+        unit="seconds",
+    )
+
+
+def serve_fields(report) -> dict:
+    s = report.summary
+    return {"digest": report.digest(), "reject_count": s["reject_count"],
+            "n_rejected_admission": s["n_rejected_admission"],
+            "n_repairs": s["n_repairs"], "n_items_lost": s["n_items_lost"],
+            "n_placed": s["n_placed"]}
+
+
+def serve_job(lane: str, name: str, rate: float, churn: bool):
+    """One service run on the port's numpy oracles in a worker."""
+    from repro_torch.core import PlacementEngine
+    from repro_torch.serve.placement import FrontierConfig, PlacementFrontier
+
+    frontier = PlacementFrontier(PlacementEngine(serve_cluster(lane), oracle_scheduler(name)),
+                                 FrontierConfig(**SERVE_CFG))
+    t0 = time.perf_counter()
+    report = frontier.run(serve_events(lane, rate, churn))
+    return serve_fields(report), time.perf_counter() - t0
+
+
+def serve_runs() -> list[tuple]:
+    """(lane, scheduler, rate, churn) of every service run."""
+    runs = [("scale", "drex_sc", SERVE_SCALE_RATE, churn) for churn in (False, True)]
+    for name in ADAPTIVE:
+        runs += [("lane", name, rate, False) for rate in SERVE_RATES]
+        runs.append(("lane", name, SERVE_RATES[0], True))
+    return runs
+
+
+def start_new_oracles(pool) -> dict:
+    """Submit the CPU oracles of the simulator and service phases (before
+    phase 4's; the longest first)."""
+    jobs = {("sim", seed): pool.submit(sim_job, "scale", seed) for seed in (0, 1)}
+    jobs[("sim", "fig12")] = pool.submit(sim_job, "fig12", 0)
+    for run in serve_runs():
+        jobs[("serve",) + run] = pool.submit(serve_job, *run)
+    return jobs
+
+
+def phase_sim(jobs: dict) -> dict:
+    """sim_at_scale: the simulator on the 10,000-node cluster through
+    ``Simulator(nodes, "drex_sc", cfg)`` on the card (every decision takes
+    the device path), seeds 0 and 1, against the numpy oracle's run; then
+    Fig. 12's 10-node run, the scheduler again built at the default
+    device (at ten nodes it decides on the host), against the CPU's."""
+    from repro_torch.core import shapes
+    from repro_torch.kernels import pb_frontier
+    from repro_torch.storage import Simulator, make_trace
+
+    report = {}
+    for seed in (0, 1):
+        nodes = scale_nodes(SCALE_NODES, seed)
+        items = make_trace("meva", seed=seed, n_items=SIM_ITEMS)
+        sim = Simulator(nodes, "drex_sc", sim_config(seed, SCALE_NODES), device=entry_device())
+        shapes.reset()
+        pb_frontier.reset_launches()
+        t0 = time.perf_counter()
+        res = sim.run(items)
+        card_s = time.perf_counter() - t0
+        launches = pb_frontier.launches
+        PATH_SHAPES["sim_at_scale"] |= shapes.issued_shapes("pb_frontier")
+        got = sim_fingerprint(sim, res)
+        want, oracle_s, oracle_ovh = jobs[("sim", seed)].result()
+        bad, keys = sim_disagreements(got, want)
+        ovh = np.array(res.sched_overhead_s) * 1e3
+        oovh = np.array(oracle_ovh) * 1e3
+        row = {
+            "run": "sim_at_scale", "seed": seed, "nodes": SCALE_NODES, "items": SIM_ITEMS,
+            "disagree": bad, "fields_differing": keys,
+            "stored": res.n_stored, "failed_writes": res.n_failed_writes,
+            "node_failures": res.n_node_failures, "repairs_planned": res.n_repairs_planned,
+            "repairs_completed": res.n_repairs_completed,
+            "repairs_aborted": res.n_repairs_aborted, "dropped_mb": res.dropped_mb,
+            "ms_per_item_card": card_s / SIM_ITEMS * 1e3,
+            "ms_per_item_oracle": oracle_s / SIM_ITEMS * 1e3,
+            "decision_ms_card_p50": float(np.percentile(ovh, 50)),
+            "decision_ms_card_p99": float(np.percentile(ovh, 99)),
+            "decision_ms_oracle_p50": float(np.percentile(oovh, 50)),
+            "decision_ms_oracle_p99": float(np.percentile(oovh, 99)),
+            "pb_frontier_launches": launches,
+        }
+        log("[sim] " + json.dumps(row))
+        if bad:
+            raise AssertionError(f"sim_at_scale seed {seed}: card != oracle ({keys})")
+        if launches == 0 and DEV == "cuda":
+            raise AssertionError(f"sim_at_scale seed {seed}: no pb_frontier launch")
+        report[f"sim_at_scale/{seed}"] = row
+
+    nodes, items, cfg = fig12_setup()
+    sim = Simulator(nodes, "drex_sc", cfg, device=entry_device())
+    shapes.reset()
+    pb_frontier.reset_launches()
+    t0 = time.perf_counter()
+    res = sim.run(items)
+    card_s = time.perf_counter() - t0
+    PATH_SHAPES["fig12"] |= shapes.issued_shapes("pb_frontier")
+    want, oracle_s, _ = jobs[("sim", "fig12")].result()
+    bad, keys = sim_disagreements(sim_fingerprint(sim, res), want)
+    row = {"run": "fig12", "scheduler": "drex_sc", "nodes": len(nodes), "items": len(items),
+           "disagree": bad, "fields_differing": keys,
+           "retained_fraction": res.retained_fraction, "stored_mb": res.stored_mb,
+           "repairs_planned": res.n_repairs_planned, "ms_per_item_card": card_s / len(items) * 1e3,
+           "ms_per_item_oracle": oracle_s / len(items) * 1e3,
+           "pb_frontier_launches": pb_frontier.launches}
+    log("[sim] " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"fig12 run: card != CPU ({keys})")
+    report["fig12"] = row
+    return report
+
+
+def phase_serve(jobs: dict) -> dict:
+    """serve_lane and serve_at_scale: ``PlacementFrontier`` over an engine
+    built by name at its default device, against the numpy oracle's run
+    of the same events; at the reject-free rates also against a per-item
+    ``engine.place`` loop on the card."""
+    from repro_torch.core import PlacementEngine, shapes
+    from repro_torch.kernels import pb_frontier
+    from repro_torch.serve.placement import FrontierConfig, PlacementFrontier
+
+    report, sequential = {}, {}
+    for lane, name, rate, churn in serve_runs():
+        engine = PlacementEngine(serve_cluster(lane), name, device=entry_device())
+        windows = {"n": 0, "pending": 0}
+        place_many = engine.place_many
+
+        def checked_place_many(items, **kw):
+            out = place_many(items, **kw)
+            windows["n"] += 1
+            windows["pending"] += not stream_idle()
+            return out
+
+        engine.place_many = checked_place_many
+        frontier = PlacementFrontier(engine, FrontierConfig(**SERVE_CFG))
+        events = serve_events(lane, rate, churn)
+        shapes.reset()
+        pb_frontier.reset_launches()
+        t0 = time.perf_counter()
+        rep = frontier.run(events)
+        card_s = time.perf_counter() - t0
+        launches = pb_frontier.launches
+        path = "serve_lane" if lane == "lane" else "serve_at_scale"
+        PATH_SHAPES[path] |= shapes.issued_shapes("pb_frontier")
+        got = serve_fields(rep)
+        want, oracle_s = jobs[("serve", lane, name, rate, churn)].result()
+        s = rep.summary
+        row = {"run": path,
+               "scheduler": name, "nodes": engine.cluster.n_nodes, "rate": rate,
+               "churn": churn, "equal": got == want, "card": got, "oracle": want,
+               "decision_ms_p50": s["decision_wall"]["p50_ms"],
+               "decision_ms_p99": s["decision_wall"]["p99_ms"],
+               "mean_window": s["mean_window"], "windows": s["n_flushes"],
+               "windows_with_card_work_pending_on_return": windows["pending"],
+               "card_wall_s": card_s, "oracle_wall_s": oracle_s,
+               "pb_frontier_launches": launches}
+        if not churn and got["reject_count"] == 0:
+            key = (lane, name)
+            if key not in sequential:
+                seq_engine = PlacementEngine(serve_cluster(lane), name, device=entry_device())
+                sequential[key] = [seq_engine.place(ev.payload) for ev in events]
+            by_id = {o.item_id: o.placement for o in rep.outcomes}
+            row["matches_sequential"] = all(by_id.get(r.item_id) == r.placement
+                                            for r in sequential[key])
+        log("[serve] " + json.dumps(row))
+        if not row["equal"] or row.get("matches_sequential") is False:
+            raise AssertionError(f"serve {lane} {name} rate {rate} churn {churn}: {row}")
+        if windows["pending"] or windows["n"] != s["n_flushes"]:
+            raise AssertionError(f"serve {lane} {name}: a window returned before the card "
+                                 f"finished ({windows})")
+        if name == "drex_sc" and launches == 0 and DEV == "cuda":
+            raise AssertionError(f"serve {lane} drex_sc rate {rate}: no pb_frontier launch")
+        report[f"{lane}/{name}/{rate:g}{'/churn' if churn else ''}"] = row
+    return report
+
+
+def phase_path_shapes(variants: set) -> dict:
+    """pb_frontier against its plain version at every shape the [sim] and
+    [serve] paths issued: per (S, L, L_live, W) one plain call on B rows
+    of the path's cluster (its fail probabilities at 365 days, the MEVA
+    retention, in free-descending order, rolled by the row index; targets
+    0.9 to 0.99999 and on row 0 an ulp-tight one), and the kernel at every
+    B the paths launched, each int64-equal to those rows.  Every
+    launch-plan variant a path took must be one the grid or this check
+    exercised."""
+    from repro_torch.core.algorithms import Scheduler
+    from repro_torch.kernels import pb_frontier, ref
+
+    def variant(n_rows: int, width: int) -> str:
+        return frontier_variant(n_rows, width) if DEV == "cuda" else "plain"
+
+    lanes = {"sim_at_scale": "scale", "serve_at_scale": "scale", "serve_lane": "lane"}
+    groups = collections.defaultdict(set)
+    for path, issued in PATH_SHAPES.items():
+        for B, S, L, L_live, W, dev in issued:
+            if dev == DEV and path in lanes:
+                groups[(lanes[path], S, L, L_live, W)].add(B)
+    t0 = time.perf_counter()
+    clusters = {lane: serve_cluster(lane) for lane in {g[0] for g in groups}}
+    for (lane, S, L, L_live, W), Bs in sorted(groups.items()):
+        c = clusters[lane]
+        fp = c.fail_probs(365.0)[Scheduler._live_sorted(c, c.free_mb)]
+        row = np.resize(fp, L_live)
+        n = max(Bs)
+        probs = np.zeros((n, L), dtype=np.float64)
+        for b in range(n):
+            probs[b, :L_live] = np.roll(row, b)
+        tg = [(0.9, 0.99, 0.999, 0.9999, 0.99999)[b % 5] for b in range(n)]
+        tight, _ = tight_target(row, W, 0.999)
+        if tight == tight:
+            tg[0] = tight
+        probs_t = torch.from_numpy(probs).to(DEV)
+        t = torch.tensor(tg, dtype=torch.float64, device=DEV)
+        want = ref.pb_frontier_ref(probs_t, t, S, L_live, W)
+        for B in sorted(Bs):
+            got = pb_frontier.frontier(probs_t[:B], t[:B], S, L_live, W)
+            if not torch.equal(got, want[:B]):
+                raise AssertionError(f"pb_frontier != plain version at the {lane} path's "
+                                     f"shape B={B} S={S} L={L} L_live={L_live} W={W}")
+            variants.add(variant(B * S, W))
+    taken = {path: sorted({variant(B * S, W) for B, S, _, _, W, dev in issued if dev == DEV})
+             for path, issued in PATH_SHAPES.items()}
+    missing = {v for vs in taken.values() for v in vs} - variants
+    report = {"shapes": sum(len(b) for b in groups.values()), "plain_calls": len(groups),
+              "checked": [[*g, sorted(b)] for g, b in sorted(groups.items())],
+              "variants_by_path": taken, "s": time.perf_counter() - t0}
+    log("[kernel] pb_frontier int64-equal to the plain version at the [sim] and [serve] "
+        "paths' shapes: " + json.dumps(report))
+    if missing:
+        raise AssertionError(f"paths took launch-plan variants never checked: {sorted(missing)}")
+    return report
+
+
+# -- 7. the main path ---------------------------------------------------------
 
 
 def phase_main(seed: int) -> dict:
     from repro_torch.checkpoint import CheckpointPolicy, DRexCheckpointer, StorageFabric
-    from repro_torch.core import ClusterView, DataItem, PlacementEngine, create_scheduler, shapes
+    from repro_torch.core import ClusterView, DataItem, PlacementEngine, shapes
     from repro_torch.kernels import ops, pb_frontier, rs_bitmatmul
     from repro_torch.storage import make_node_set
 
@@ -791,8 +1236,7 @@ def phase_main(seed: int) -> dict:
         raise AssertionError("the save did not score its groups through pb_frontier")
 
     # The same group sizes through the CPU oracle on a fresh node set.
-    oracle = create_scheduler("drex_sc", device="cpu")
-    oracle.use_kernel = False
+    oracle = oracle_scheduler("drex_sc")
     want = PlacementEngine(ClusterView.from_nodes(make_node_set("most_used")), oracle,
                            auto_commit=False).place_many([
         DataItem(it.item_id, it.size_mb, it.arrival_time, it.delta_t_days,
@@ -866,7 +1310,7 @@ def phase_main(seed: int) -> dict:
             "frontier_shapes": frontier_shapes}
 
 
-# -- 6. timing ----------------------------------------------------------------
+# -- 8. timing ----------------------------------------------------------------
 
 
 def phase_timing(issued: list, seed: int) -> list[dict]:
@@ -990,10 +1434,18 @@ def main() -> int:
     smi = timed("build", phase_build)
     spawn = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(max_workers=7, mp_context=spawn) as pool:
+        new_jobs = start_new_oracles(pool)
         jobs = start_oracles(pool)
         timed("kernel_grid", phase_kernel_grid, args.seed)
-        timed("frontier_grid", phase_frontier_grid, args.seed)
+        variants = timed("frontier_grid", phase_frontier_grid, args.seed)
         timed("small_checkpoint", phase_small_checkpoint, args.seed)
+        # The simulator and the service before phase 6: their oracles were
+        # submitted first.  The host-bound phases that hold no oracle (the
+        # LB carry, the crossovers, the main path, the timings) run after
+        # the workers are gone, so their numbers are taken on an idle host.
+        sim = timed("sim", phase_sim, new_jobs)
+        serve = timed("serve", phase_serve, new_jobs)
+        path_shapes = timed("path_shapes", phase_path_shapes, variants)
         scale = timed("scale", phase_scale, jobs)
     timed("lb_carry", phase_lb_carry)
     timed("crossovers", phase_crossovers)
@@ -1030,6 +1482,16 @@ def main() -> int:
                         "program _score_windows, not Pallas); "
                         "src/repro/core/greedy_kernel.py:125",
             "launches": main_run["frontier_launches"],
+            "launches_by_path": {
+                "checkpoint_main": main_run["frontier_launches"],
+                "sim_at_scale": sum(sim[f"sim_at_scale/{s}"]["pb_frontier_launches"]
+                                    for s in (0, 1)),
+                "serve_lane": sum(r["pb_frontier_launches"] for r in serve.values()
+                                  if r["run"] == "serve_lane"),
+                "serve_at_scale": sum(r["pb_frontier_launches"] for r in serve.values()
+                                      if r["run"] == "serve_at_scale"),
+            },
+            "variants_by_path": path_shapes["variants_by_path"],
             "max_abs_err": max(x["max_abs_err"] for x in frows),
             "matches_plain": True,
             "ms": fhead["ms"],
@@ -1045,7 +1507,12 @@ def main() -> int:
         k: {f: v[f] for f in ("batch_disagree", "committed_disagree",
                               "batch_ms_per_decision_card",
                               "scalar_ms_per_decision_oracle") if f in v}
-        for k, v in scale.items()}}))
+        for k, v in scale.items()}, "sim": {
+        k: {f: v[f] for f in ("disagree", "ms_per_item_card", "ms_per_item_oracle")}
+        for k, v in sim.items()}, "serve": {
+        k: {f: v[f] for f in ("equal", "decision_ms_p50", "decision_ms_p99",
+                              "pb_frontier_launches")}
+        for k, v in serve.items()}}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -155,13 +155,14 @@ class RepairPlanner:
         # mapping is excluded (survivors must not double up, dead nodes
         # are gone, and a node that lost its chunk while staying alive —
         # the checkpoint heal case — held this item once already).
+        # ``free_mb`` is computed once: read per node it costs O(N) each,
+        # O(N^2) a plan.  A stable argsort of the id-ascending live nodes
+        # on -free keeps ties in id order, as a stable sort on that key.
         exclude = set(surv) | {int(i) for i in placement.node_ids}
-        candidates = [
-            int(i)
-            for i in cluster.live_ids()
-            if int(i) not in exclude and cluster.free_mb[i] >= chunk
-        ]
-        candidates.sort(key=lambda i: -cluster.free_mb[i])
+        free = cluster.free_mb
+        live = cluster.live_ids()
+        live = live[(free[live] >= chunk) & ~np.isin(live, list(exclude))]
+        candidates = live[np.argsort(-free[live], kind="stable")].tolist()
         considered = len(candidates)
         if len(candidates) < lost:
             return infeasible(

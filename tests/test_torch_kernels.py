@@ -244,4 +244,6 @@ assert not bad, bad
     )
     assert out.returncode == 0, out.stderr + out.stdout
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 20
+    # every module of the port so far: a module dropped from the package
+    # fails here
+    assert n_modules >= 41

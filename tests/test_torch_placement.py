@@ -390,6 +390,36 @@ class TestRepair:
         np.testing.assert_array_equal(te.cluster.used_mb, je.cluster.used_mb)
         assert te.mutation_seq == je.mutation_seq
 
+    @pytest.mark.parametrize("seed", range(4))
+    def test_replacement_order_equal_with_ties(self, seed):
+        """Freest-first replacements where many nodes tie on free space
+        (capacities from four values, a few used, some dead): the same
+        candidates in the same order, ties by ascending id, as Python ints."""
+        rng = np.random.default_rng(seed)
+        rows = [dict(node_id=i, capacity_mb=float(rng.choice([50.0, 80.0, 120.0, 200.0])),
+                     write_bw=100.0, read_bw=150.0,
+                     annual_failure_rate=float(rng.uniform(0.01, 0.3)),
+                     used_mb=float(rng.choice([0.0, 0.0, 0.0, 30.0])))
+                for i in range(300)]
+        jv = jcore.ClusterView.from_nodes([jcore.StorageNode(**r) for r in rows])
+        tv = tcore.ClusterView.from_nodes([tcore.StorageNode(**r) for r in rows])
+        for v in rng.choice(300, 40, replace=False):
+            jv.fail_node(int(v))
+            tv.fail_node(int(v))
+        jp, tp = jcore.RepairPlanner(jv), tcore.RepairPlanner(tv)
+        for i in range(12):
+            ids = tuple(int(x) for x in rng.choice(300, 8, replace=False))
+            k = int(rng.integers(2, 6))
+            args = dict(chunk_mb=float(rng.choice([10.0, 60.0, 100.0])),
+                        allow_parity_growth=True, require_target=bool(i % 2))
+            item = dict(item_id=i, size_mb=40.0, arrival_time=0.0,
+                        delta_t_days=365.0, reliability_target=0.999)
+            pa = jp.plan(jcore.DataItem(**item), jcore.Placement(k, 8 - k, ids), **args)
+            pb = tp.plan(tcore.DataItem(**item), tcore.Placement(k, 8 - k, ids), **args)
+            assert _plan_key(pb) == _plan_key(pa)
+            if pb.placement is not None:
+                assert all(type(n) is int for n in pb.placement.node_ids)
+
     def test_repair_with_explicit_survivors_equal(self):
         jv = jcore.ClusterView.from_nodes(j_node_set("most_unreliable"))
         tv = tcore.ClusterView.from_nodes(t_node_set("most_unreliable"))
