@@ -53,16 +53,34 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    rule must equal the port's CPU oracle path.  ``greedy_min_storage`` is held the
    same way on a 1,000-node cluster from the same generator.  The CPU
    oracles run in worker processes while the card works.
-7. **The main path at real size**: the 24 bf16 parameter leaves of
-   RWKV6-1.6B (3.20 GB, filled from ``--seed`` on the card) are saved
+7. **The LM serving path** (``[lm]``): RWKV6-1.6B and Qwen3-8B at full
+   width, bf16, params from ``init_params`` on the card from ``--seed``
+   (RWKV6-1.6B's leaf names and shapes must equal ``RWKV6_1_6B``, the
+   JAX package's layout).  ``ServingEngine`` serves 4 prompts of 128
+   tokens (numpy, ``--seed``) with 32 greedy new tokens twice: tokens
+   and logits bit-equal.  With the params upcast to f32 on the card
+   (TF32 off), teacher-forced decode over the served 160 tokens equals
+   the full forward, and the f32 params (Qwen3-8B cut to 2 layers) give
+   the port's CPU logits (B = 1, 16-token prompt, 8 teacher-forced
+   steps), both within the model's f32 rounding band (``LM_BAND``); the
+   served bf16 logits lie within ``LM_BAND`` times the bf16 forward's
+   own distance of the f32 forward.  Seeded sampling at T = 0.8 twice
+   gives the same 8 new tokens.  One ``[lm]`` line per model: prefill
+   ms, decode ms per step (p50), tokens/s, a decode step's kernels and
+   the card's busy share (``torch.profiler``), every check's error and
+   tolerance, device peak, and for RWKV6 the WKV loop's share of a
+   prefill.  Qwen3-8B is then freed.
+8. **The main path at real size**: the [lm] phase's RWKV6-1.6B params
+   (24 bf16 leaves, 3.20 GB, under their JAX tree paths) are saved
    through D-Rex SC on the ``most_used`` node set with the default
    checkpoint policy, D-Rex SC scoring the save's groups on the card; the
    72 groups' (K, P, nodes) must equal the CPU oracle's on the same group
    sizes; the node holding row 0 of the first group fails; the state is
-   restored and checked bit-exact; ``repair`` runs and the state is
-   restored and checked again.  Every launch count is set to 0 just
-   before and read just after.
-8. **Timing** of each kernel and its plain version, with CUDA events, at
+   restored and checked bit-exact, and the restored params serve the
+   [lm] prompts again with equal tokens and bit-equal logits; ``repair``
+   runs and the state is restored and checked again.  Every launch count
+   is set to 0 just before and read just after.
+9. **Timing** of each kernel and its plain version, with CUDA events, at
    the shapes the main path launched (and, for ``pb_frontier``, at the
    decisions-at-scale shape, the committed stream's shape and a wide row
    on the shared-memory variant), with the variant and ns per DP step.
@@ -146,9 +164,14 @@ CUTS = [
     "oracle it is held against takes ~0.16-0.2 s an item at 10,000 nodes)",
     "serve_at_scale serves 256 MEVA items, not serve_load's 600, for the same "
     "oracle's sake",
+    "qwen3_8b's f32 card-against-CPU check runs 2 of its 36 layers at full width "
+    "(~6.6 GB of f32 params on the host); its bf16 serving runs all 36",
+    "qwen3_8b is served, not checkpointed: a 16.4 GB save and restore would add "
+    "~45 s at the main path's ~0.8 GB/s",
+    "[lm]'s seeded-sampling check serves 8 new tokens twice, not 32",
 ]
 
-#: the card every phase runs on (a CPU rehearsal of phases 3-6 at a tiny
+#: the card every phase runs on (a CPU rehearsal of phases 3-7 at a tiny
 #: size sets this to "cpu"; the script itself always runs on "cuda").
 DEV = "cuda"
 SCALE_NODES = 10_000
@@ -1188,20 +1211,323 @@ def phase_path_shapes(variants: set) -> dict:
     return report
 
 
-# -- 7. the main path ---------------------------------------------------------
+# -- 7. the LM serving path ----------------------------------------------------
 
 
-def phase_main(seed: int) -> dict:
+#: [lm]: the models served at full width, the request shape, and the
+#: f32 card-against-CPU check's shape and depth (None = every layer).
+LM_ARCHS = ("rwkv6_1_6b", "qwen3_8b")
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 128, 32
+LM_CPU_PROMPT, LM_CPU_STEPS = 16, 8
+LM_CPU_LAYERS = {"rwkv6_1_6b": None, "qwen3_8b": 2}
+LM_TEMPERATURE, LM_SAMPLE_NEW = 0.8, 8
+#: a CPU rehearsal sets this to serve the smoke configs.
+LM_SMOKE = False
+#: How far two computations of the same logits may differ when only
+#: their rounding differs.  A model's sensitivity to rounding is measured
+#: in the run: the band is how far its f32 forward moves when the batch is
+#: split into single rows (only the matmul shapes, so the summation
+#: orders, change).  On an H100 that is ~2.4e-5 for Qwen3-8B but ~0.32 for
+#: random-init RWKV6-1.6B (max abs over 4 x 159 x 65,536 logits; mean
+#: ~1.6e-3): its per-head group norm divides by the head's own scale, and
+#: a head whose scale rounds near zero turns rounding into an O(1) change.
+#: f32 checks (teacher-forced decode against the full forward, the card
+#: against the port on the CPU) hold max and mean abs error to
+#: max(LM_F32_FLOOR, LM_BAND x band); the served bf16 logits are held to
+#: the f32 forward within LM_BAND x the bf16 forward's own distance from
+#: it.  A wrong position, mask or state moves every logit by ~1.
+LM_F32_FLOOR = {"max_abs_err": 1e-3, "mean_abs_err": 1e-4}
+LM_BAND = 2.0
+
+
+def sync() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(fn) -> tuple:
+    """``(fn(), ms)`` on the host clock, the device drained on both sides."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def teacher_forced(params, cfg, ids: np.ndarray, n_prompt: int, device) -> tuple:
+    """Prefill ``ids[:, :n_prompt]`` as the serving engine does (a cache
+    sized for all of ``ids``) and decode the rest of ``ids`` one token at
+    a time.  Returns (logits at positions n_prompt-1 .. T-2, stacked
+    (B, T-n_prompt, V), prefill ms, per-step decode ms)."""
+    from repro_torch.models import decode_step
+    from repro_torch.serve.engine import prime
+
+    t = ids.shape[1]
+    (logits, state), prefill_ms = host_ms(lambda: prime(params, ids[:, :n_prompt], cfg, t,
+                                                        device))
+    out, step_ms = [logits], []
+    for pos in range(n_prompt, t - 1):
+        (logits, state), ms = host_ms(lambda: decode_step(params, ids[:, pos:pos + 1], pos,
+                                                          state, cfg, device=device))
+        out.append(logits)
+        step_ms.append(ms)
+    return torch.stack(out, dim=1), prefill_ms, step_ms
+
+
+def abs_errors(a: torch.Tensor, b: torch.Tensor) -> dict:
+    d = (a.float() - b.float().to(a.device)).abs()
+    return {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean())}
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return abs_errors(a, b)["max_abs_err"]
+
+
+def f32_errors(a: torch.Tensor, b: torch.Tensor, tol: dict, what: str) -> dict:
+    """Max and mean abs error of f32 logits, held to ``tol``."""
+    out = {**abs_errors(a, b), "tol": tol}
+    if not all(out[k] <= v for k, v in tol.items()):
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
+def lm_cpu_check(arch: str, p32, c32, ids: np.ndarray, tol: dict) -> dict:
+    """The f32 params (cut to ``LM_CPU_LAYERS`` layers) on the card and
+    on the host: B = 1, an LM_CPU_PROMPT-token prompt and LM_CPU_STEPS
+    teacher-forced steps; the logits must agree within ``tol``."""
+    from repro_torch.models import model
+
+    depth = LM_CPU_LAYERS[arch]
+    depth = c32.n_layers if depth is None or LM_SMOKE else depth
+    cut = c32.with_(n_layers=depth)
+    card = {**{k: v for k, v in p32.items() if k != "layers"},
+            "layers": model.tree_map(lambda x: x[:depth], p32["layers"])}
+    seq = ids[:1, :LM_CPU_PROMPT + LM_CPU_STEPS + 1]
+    card_tf, _, _ = teacher_forced(card, cut, seq, LM_CPU_PROMPT, entry_device())
+    host = model.tree_map(lambda x: x.cpu(), card)
+    host_tf, _, _ = teacher_forced(host, cut, seq, LM_CPU_PROMPT, "cpu")
+    return {"layers": depth, "batch": 1, "prompt_len": LM_CPU_PROMPT,
+            "steps": LM_CPU_STEPS,
+            **f32_errors(card_tf, host_tf, tol, f"{arch}: f32 logits, card against CPU"),
+            "host_params_GB": sum(x.numel() * 4 for x in model.tree_leaves(host)) / 1e9}
+
+
+def device_time(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the kernels it
+    launched and their summed device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEV != "cuda":
+        return {"kernels": None, "device_ms": None}
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel on the card")
+    return {"kernels": len(kernels), "device_ms": sum(e.device_time for e in kernels) / 1e3}
+
+
+def wkv_share(params, cfg, prompts: np.ndarray, reps: int = 3) -> dict:
+    """The WKV loop (``_rwkv_core_scan``, once per layer at the prefill's
+    shapes) against the whole prefill, timed in turns on the host clock
+    (both are bound by launches)."""
+    from repro_torch.models import model
+    from repro_torch.models.recurrent import _rwkv_core_scan
+
+    g = torch.Generator(device=DEV).manual_seed(0)
+    h, hd = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    shape = (LM_BATCH, LM_PROMPT, h, hd)
+    r, k, v = (torch.randn(shape, generator=g, device=DEV) for _ in range(3))
+    w = torch.rand(shape, generator=g, device=DEV)
+    u = torch.randn((h, hd), generator=g, device=DEV)
+    s0 = torch.zeros((LM_BATCH, h, hd, hd), device=DEV)
+
+    def loop():
+        for _ in range(cfg.n_layers):
+            _rwkv_core_scan(r, k, v, w, u, s0, cfg.rwkv_chunk)
+
+    def prefill():
+        model.prefill(params, prompts, cfg, device=entry_device())
+
+    loop()
+    wkv, whole = [], []
+    for _ in range(reps):
+        wkv.append(host_ms(loop)[1])
+        whole.append(host_ms(prefill)[1])
+    out = {"ms": statistics.median(wkv), "prefill_ms": statistics.median(whole)}
+    out["share_of_prefill"] = out["ms"] / out["prefill_ms"]
+    return out
+
+
+def phase_lm(arch: str, seed: int) -> dict:
+    """One model served on the card at full width (smoke size in a CPU
+    rehearsal): init from ``--seed``, 4 greedy requests twice (tokens and
+    logits bit-equal), teacher-forced decode against the full forward,
+    seeded sampling twice, the f32 card-against-CPU check, timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import flatten_params, forward, init_params, model
+    from repro_torch.serve import ServeConfig, ServingEngine
+    from repro_torch.serve.engine import prime
+
+    cfg = get_config(arch, smoke=LM_SMOKE)
+    resident = 0.0
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 1e9
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params, init_ms = host_ms(lambda: init_params(cfg, gen, device=DEV))
+    marks = [("init", time.perf_counter())]
+    flat = flatten_params(params)
+    off = [n for n, t in flat.items() if t.device.type != DEV]
+    if off:
+        raise AssertionError(f"{arch}: params off the card: {off}")
+    if arch == "rwkv6_1_6b" and not LM_SMOKE:
+        got = [(n, tuple(t.shape)) for n, t in flat.items()]
+        if got != RWKV6_1_6B or any(t.dtype != torch.bfloat16 for t in flat.values()):
+            raise AssertionError("rwkv6_1_6b's params differ from the JAX layout RWKV6_1_6B")
+    n_params = sum(t.numel() for t in flat.values())
+    n_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+
+    def serve(new=LM_NEW, **kw):
+        eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=new, **kw),
+                            device=entry_device())
+        ids, logits = eng.generate(prompts, return_logits=True)
+        return eng, ids, logits
+
+    _, ids, logits = serve()
+    eng, ids2, logits2 = serve()
+    if not (np.array_equal(ids, ids2) and torch.equal(logits, logits2)):
+        raise AssertionError(f"{arch}: a second greedy run served other tokens or logits")
+    marks.append(("greedy_twice", time.perf_counter()))
+    # Teacher-forced decode against the full forward over the served
+    # 128 + 32 tokens, in f32 (the same params upcast) on the card.
+    if DEV == "cuda" and (torch.backends.cuda.matmul.allow_tf32
+                          or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is on: the f32 checks need full f32 matmuls")
+    c32 = cfg.with_(dtype="float32")
+    p32 = model.tree_map(lambda x: x.float(), params)
+    full32 = forward(p32, ids[:, :-1], c32, device=entry_device())[0]
+    rows32 = torch.cat([forward(p32, ids[i:i + 1, :-1], c32, device=entry_device())[0]
+                        for i in range(LM_BATCH)])
+    band32 = abs_errors(full32, rows32)
+    del rows32
+    full32 = full32[:, LM_PROMPT - 1:]
+    tol32 = {k: max(v, LM_BAND * band32[k]) for k, v in LM_F32_FLOOR.items()}
+    tf32, _, _ = teacher_forced(p32, c32, ids, LM_PROMPT, entry_device())
+    tf_err = f32_errors(tf32, full32, tol32, f"{arch}: f32 decode against the full forward")
+    del tf32
+    full16 = forward(params, ids[:, :-1], cfg, device=entry_device())[0][:, LM_PROMPT - 1:]
+    band16 = max_err(full16, full32)
+    served_err = max_err(logits, full32)
+    served_vs_bf16 = max_err(logits, full16)
+    agree = float((logits.argmax(-1) == full32.argmax(-1)).float().mean())
+    del full16, full32
+    if not served_err <= LM_BAND * band16:
+        raise AssertionError(f"{arch}: served bf16 logits are {served_err} from the f32 "
+                             f"forward, the bf16 forward {band16}")
+    marks.append(("f32_and_bf16_checks", time.perf_counter()))
+    cpu = lm_cpu_check(arch, p32, c32, ids, tol32)
+    del p32
+    marks.append(("card_vs_cpu", time.perf_counter()))
+    _, ids_s, _ = serve(LM_SAMPLE_NEW, temperature=LM_TEMPERATURE, seed=seed)
+    _, ids_s2, _ = serve(LM_SAMPLE_NEW, temperature=LM_TEMPERATURE, seed=seed)
+    if not np.array_equal(ids_s, ids_s2):
+        raise AssertionError(f"{arch}: seeded sampling served other tokens the second time")
+    marks.append(("sampling_twice", time.perf_counter()))
+    _, prefill_ms, step_ms = teacher_forced(params, cfg, ids, LM_PROMPT, entry_device())
+    prefill_runs = [host_ms(lambda: model.prefill(params, prompts, cfg,
+                                                  device=entry_device()))[1]
+                    for _ in range(3)]
+    # The card's busy share of a decode step: summed kernel time
+    # (profiled) over the unprofiled wall time.  (A prefill is not
+    # profiled: RWKV6's ~24,000 kernels take the profiler ~20 s.)
+    _, state = prime(params, ids[:, :LM_PROMPT], cfg, LM_PROMPT + LM_NEW, entry_device())
+    prof = device_time(lambda: model.decode_step(
+        params, ids[:, LM_PROMPT:LM_PROMPT + 1], LM_PROMPT, state, cfg,
+        device=entry_device()))
+    del state
+    marks.append(("timing_and_profile", time.perf_counter()))
+    if prof["device_ms"] is not None:
+        prof["busy_share"] = prof["device_ms"] / statistics.median(step_ms)
+    report = {
+        "model": cfg.name, "params": n_params, "bytes": n_bytes, "dtype": cfg.dtype,
+        "layers": cfg.n_layers, "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+        "new_tokens": LM_NEW, "init_ms": init_ms,
+        "prefill_ms": statistics.median(prefill_runs), "prefill_ms_runs": prefill_runs,
+        "engine_prefill_ms": eng.metrics["prefill_s"] * 1e3,
+        "decode_ms_per_step_p50": statistics.median(step_ms),
+        "decode_ms_per_step_max": max(step_ms),
+        "decode_tokens_per_s": eng.decode_tokens_per_s,
+        "tokens_out": eng.metrics["tokens_out"],
+        "decode_step_profile": prof,
+        "checks": {
+            "greedy_twice": {"tokens_equal": True, "logits_bit_equal": True},
+            "f32_band_rows_vs_batch": band32,
+            "decode_vs_forward_f32": {**tf_err, "batch": LM_BATCH,
+                                      "tokens": LM_PROMPT + LM_NEW},
+            "served_bf16_vs_forward_f32": {"max_abs_err": served_err,
+                                           "tol": LM_BAND * band16,
+                                           "bf16_forward_vs_f32": band16,
+                                           "vs_forward_bf16": served_vs_bf16,
+                                           "argmax_agreement": agree},
+            "card_vs_cpu_f32": cpu,
+            "sampling_twice": {"temperature": LM_TEMPERATURE, "new_tokens": LM_SAMPLE_NEW,
+                               "tokens_equal": True, "differs_from_greedy":
+                               not np.array_equal(ids_s, ids[:, :LM_PROMPT + LM_SAMPLE_NEW])},
+        },
+        "greedy_tokens_head": ids[0, LM_PROMPT:LM_PROMPT + 8].tolist(),
+    }
+    if cfg.block_pattern == "rwkv6":
+        report["wkv_loop"] = wkv_share(params, cfg, prompts)
+        marks.append(("wkv_loop", time.perf_counter()))
+    report["phase_parts_s"] = {name: t - prev for (_, prev), (name, t)
+                               in zip([("start", t_phase)] + marks, marks)}
+    if DEV == "cuda":
+        report["device_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        report["device_resident_before_GB"] = resident
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("[lm] " + json.dumps(report))
+    return {"report": report, "cfg": cfg, "params": params, "prompts": prompts,
+            "ids": ids, "logits": logits}
+
+
+def serve_restored(lm: dict, restored: dict) -> dict:
+    """The restored state dict, back into params, serves the same prompts:
+    tokens equal and every logit bit-equal to the pre-save run."""
+    from repro_torch.models import unflatten_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    params = unflatten_params(restored)
+    eng = ServingEngine(lm["cfg"], params, ServeConfig(max_new_tokens=LM_NEW),
+                        device=entry_device())
+    ids, logits = eng.generate(lm["prompts"], return_logits=True)
+    if not np.array_equal(ids, lm["ids"]):
+        raise AssertionError("the restored params served other tokens")
+    if not torch.equal(logits, lm["logits"]):
+        raise AssertionError("the restored params served other logits: max abs "
+                             f"difference {max_err(logits, lm['logits'])}")
+    return {"tokens_equal": True, "logits_bit_equal": True,
+            "tokens": int(ids.size), "logits": int(logits.numel())}
+
+
+# -- 8. the main path ---------------------------------------------------------
+
+
+def phase_main(lm: dict) -> dict:
     from repro_torch.checkpoint import CheckpointPolicy, DRexCheckpointer, StorageFabric
     from repro_torch.core import ClusterView, DataItem, PlacementEngine, shapes
     from repro_torch.kernels import ops, pb_frontier, rs_bitmatmul
+    from repro_torch.models import flatten_params
     from repro_torch.storage import make_node_set
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    state = {
-        name: torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
-        for name, shape in RWKV6_1_6B
-    }
+    # The [lm] phase's RWKV6-1.6B params, under their JAX tree paths.
+    state = flatten_params(lm["params"])
     n_params = sum(t.numel() for t in state.values())
     n_bytes = sum(t.numel() * t.element_size() for t in state.values())
     torch.cuda.synchronize()
@@ -1254,8 +1580,12 @@ def phase_main(seed: int) -> dict:
     for name, t in state.items():
         if not torch.equal(restored[name], t):
             raise AssertionError(f"restore after node {victim} failed differs at {name}")
-    del restored
     after_restore = ops.launch_stats()
+    # The restored weights serve the [lm] phase's prompts again.
+    t0 = time.perf_counter()
+    served = serve_restored(lm, restored)
+    served["s"] = time.perf_counter() - t0
+    del restored
 
     t0 = time.perf_counter()
     rebuilt = ck.repair()
@@ -1293,6 +1623,7 @@ def phase_main(seed: int) -> dict:
         "save_s": save_s, "save_GBps": gb / save_s,
         "place_s": ck.stats["place_s"], "encode_s": ck.stats["encode_s"],
         "restore_s": restore_s, "restore_GBps": gb / restore_s,
+        "served_after_restore": served,
         "repair_s": repair_s, "repaired_chunks": rebuilt,
         "restore_after_repair_s": restore2_s,
         "bytes_stored": ck.stats["bytes_stored"],
@@ -1310,7 +1641,7 @@ def phase_main(seed: int) -> dict:
             "frontier_shapes": frontier_shapes}
 
 
-# -- 8. timing ----------------------------------------------------------------
+# -- 9. timing ----------------------------------------------------------------
 
 
 def phase_timing(issued: list, seed: int) -> list[dict]:
@@ -1449,7 +1780,13 @@ def main() -> int:
         scale = timed("scale", phase_scale, jobs)
     timed("lb_carry", phase_lb_carry)
     timed("crossovers", phase_crossovers)
-    main_run = timed("main", phase_main, args.seed)
+    lm = {arch: timed(f"lm_{arch}", phase_lm, arch, args.seed) for arch in LM_ARCHS}
+    lm_reports = {arch: run["report"] for arch, run in lm.items()}
+    rwkv = lm.pop("rwkv6_1_6b")
+    lm.clear()  # qwen3_8b is not checkpointed: its 16.4 GB leave the card
+    torch.cuda.empty_cache()
+    main_run = timed("main", phase_main, rwkv)
+    del rwkv
     rows = timed("timing", phase_timing, main_run["issued"], args.seed)
     frows = timed("frontier_timing", phase_frontier_timing, main_run["frontier_shapes"])
     # The headline shape is the save's widest encode wave.
@@ -1464,6 +1801,11 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/rs_bitmatmul.cu",
             "replaces": "src/repro/kernels/rs_bitmatmul.py:56",
             "launches": main_run["launches"],
+            "launches_by_path": {
+                "checkpoint_main": main_run["launches"],
+                # the LM path: its checkpoint is [main]; serving codes no bytes
+                "lm_path": main_run["launches"],
+            },
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "matches_plain": True,
             "ms": head["ms"],
@@ -1484,6 +1826,7 @@ def main() -> int:
             "launches": main_run["frontier_launches"],
             "launches_by_path": {
                 "checkpoint_main": main_run["frontier_launches"],
+                "lm_path": main_run["frontier_launches"],
                 "sim_at_scale": sum(sim[f"sim_at_scale/{s}"]["pb_frontier_launches"]
                                     for s in (0, 1)),
                 "serve_lane": sum(r["pb_frontier_launches"] for r in serve.values()
@@ -1503,7 +1846,11 @@ def main() -> int:
             "shapes": frows,
         },
     ]
-    log("[summary] " + json.dumps({"cuts": CUTS, "phase_s": phase_s, "scale": {
+    lm_fields = ("prefill_ms", "decode_ms_per_step_p50", "decode_tokens_per_s",
+                 "device_peak_GB", "wkv_loop", "decode_step_profile")
+    log("[summary] " + json.dumps({"cuts": CUTS, "phase_s": phase_s, "lm": {
+        arch: {f: r[f] for f in lm_fields if f in r} for arch, r in lm_reports.items()},
+        "scale": {
         k: {f: v[f] for f in ("batch_disagree", "committed_disagree",
                               "batch_ms_per_decision_card",
                               "scalar_ms_per_decision_oracle") if f in v}
