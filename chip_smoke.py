@@ -80,10 +80,29 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    [lm] prompts again with equal tokens and bit-equal logits; ``repair``
    runs and the state is restored and checked again.  Every launch count
    is set to 0 just before and read just after.
-9. **Timing** of each kernel and its plain version, with CUDA events, at
-   the shapes the main path launched (and, for ``pb_frontier``, at the
-   decisions-at-scale shape, the committed stream's shape and a wide row
-   on the shared-memory variant), with the variant and ns per DP step.
+9. **The training path** (``[train]``), under
+   ``torch.use_deterministic_algorithms(True)``: RWKV6-1.6B at full width
+   (bf16 params, f32 AdamW moments and master copy: a 22.4 GB
+   ``TrainState``) from ``init_train_state`` on the card, trained by the
+   port's ``Trainer`` for 6 steps at B = 8, T = 128 with the launcher's
+   AdamW (lr 3e-3, 5 warmup steps) and data pipeline; at step 4 the whole
+   state is saved asynchronously through D-Rex SC on the ``most_used``
+   node set (policy defaults).  Then a node holding chunks fails, a second
+   ``Trainer`` restores the state (bit-equal, leaf by leaf, to a host copy
+   taken at the save) and runs steps 5-6 again: losses and the final
+   state bit-equal to the uninterrupted run.  Step ms, tokens/s, loss and
+   grad norm per step, save/restore GB/s, device and host peaks, and the
+   WKV loop's share of a step.  Then one step's f32 loss and gradients,
+   on the card and on the CPU, for RWKV6-1.6B and Qwen3-8B cut to 2
+   layers at full width, leaf by leaf within max(floor, ``LM_BAND`` x the
+   band the run measures, as ``[lm]`` does).
+   Every launch count is set to 0 just before the run and read after the
+   resumed steps.
+10. **Timing** of each kernel and its plain version, with CUDA events, at
+   the shapes the main and training paths launched (and, for
+   ``pb_frontier``, at the decisions-at-scale shape, the committed
+   stream's shape and a wide row on the shared-memory variant), with the
+   variant and ns per DP step.
 
 Every phase raises on failure.  The last line is the device record; the
 line before it lists the kernels.  Without a CUDA device the script
@@ -98,6 +117,7 @@ import concurrent.futures
 import dataclasses
 import json
 import multiprocessing
+import os
 import pathlib
 import re
 import resource
@@ -107,7 +127,12 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+# [train] runs under torch.use_deterministic_algorithms(True), whose
+# cuBLAS needs a fixed workspace set before CUDA initializes.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -149,7 +174,6 @@ RWKV6_1_6B = [
 ]
 #: what the run leaves out, for its time limit.
 CUTS = [
-    "optimizer moments (AdamW m, v) left out of the checkpoint: parameters only",
     "greedy_min_storage held on 1,000 nodes with 16 items (its scalar oracle "
     "takes ~0.4 s per item there and grows with the node count squared)",
     "drex_lb's committed place_many holds 24 items, not 256 (its CPU oracle "
@@ -169,9 +193,15 @@ CUTS = [
     "qwen3_8b is served, not checkpointed: a 16.4 GB save and restore would add "
     "~45 s at the main path's ~0.8 GB/s",
     "[lm]'s seeded-sampling check serves 8 new tokens twice, not 32",
+    "[train] trains 6 steps (one checkpoint at step 4, steps 5-6 run again after the "
+    "restore), not to convergence",
+    "[train]'s f32 card-against-CPU check runs 2 layers at full width (of RWKV6-1.6B's "
+    "24 and Qwen3-8B's 36), B = 2, T = 16, one step's loss and gradients",
+    "qwen3_8b is trained only in that check: its TrainState (8.19 B params x 14 bytes, "
+    "115 GB) does not fit on one 80 GB card",
 ]
 
-#: the card every phase runs on (a CPU rehearsal of phases 3-7 at a tiny
+#: the card every phase runs on (a CPU rehearsal of phases 3-7 and 9 at a tiny
 #: size sets this to "cpu"; the script itself always runs on "cuda").
 DEV = "cuda"
 SCALE_NODES = 10_000
@@ -1641,18 +1671,354 @@ def phase_main(lm: dict) -> dict:
             "frontier_shapes": frontier_shapes}
 
 
-# -- 9. timing ----------------------------------------------------------------
+# -- 9. the training path ----------------------------------------------------
+
+#: [train]: the model trained at full width, the launcher's step batch,
+#: optimizer and data, and the run: one async checkpoint at step 4 of 6.
+TRAIN_ARCH = "rwkv6_1_6b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 4
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 5
+#: the f32 card-against-CPU check: models, depth, batch and length.
+TRAIN_CHECK_ARCHS = ("rwkv6_1_6b", "qwen3_8b")
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 16
+#: a CPU rehearsal sets this to train the smoke configs.
+TRAIN_SMOKE = False
+#: Floors of that check, as fractions of the card's value: |loss| for the
+#: loss, the leaf's max |g| for a gradient leaf.  The tolerance is
+#: max(floor, LM_BAND x band), the band measured as [lm] measures it: how
+#: far the f32 loss and gradients move on the card when the batch is split
+#: into rows (the mean of the rows' losses and gradients is the batch's).
+#: The card's row and batch runs share their reduction kernels, so the
+#: band can miss the CPU's other summation orders: RWKV6-1.6B's
+#: ``layers.tmix.bonus_u`` (an f32 sum of B x T x 64 products that
+#: cancels) lay 2.6e-4 of its max |g| from the CPU's on an H100, against a
+#: 1e-4 floor.  A wrong gradient moves a leaf by O(1) of its max.
+TRAIN_LOSS_FLOOR = {"max_abs_err": 1e-5, "mean_abs_err": 1e-5}
+TRAIN_GRAD_FLOOR = {"max_abs_err": 1e-3, "mean_abs_err": 1e-4}
 
 
-def phase_timing(issued: list, seed: int) -> list[dict]:
+class SnapshotCheckpointer:
+    """The Trainer's checkpointer (``TrainStateCheckpointer``) that also
+    keeps a host copy of the state it is asked to save, and times the
+    save: ``stall_s`` (the call, which encodes) and ``save_s`` (until the
+    last chunk is on the fabric)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.snapshot: dict = {}
+        self.times: dict = {}
+
+    def save_async(self, state, step):
+        from repro_torch.train import train_state_dict
+
+        self.snapshot = {n: t.to("cpu", copy=True) for n, t in train_state_dict(state).items()}
+        sync()
+        t0 = time.perf_counter()
+        fut = self.inner.save_async(state, step)
+        self.times["stall_s"] = time.perf_counter() - t0
+        fut.add_done_callback(
+            lambda f: self.times.setdefault("save_s", time.perf_counter() - t0))
+        return fut
+
+    def restore_latest(self, cfg):
+        return self.inner.restore_latest(cfg)
+
+
+def timed_steps(trainer, out: list) -> None:
+    """Time each of ``trainer``'s steps on the host clock, the device
+    drained on both sides."""
+    inner = trainer.step_fn
+
+    def step(state, batch):
+        result, ms = host_ms(lambda: inner(state, batch))
+        out.append(ms)
+        return result
+
+    trainer.step_fn = step
+
+
+def wkv_train_share(step_fn, state, batch, cfg, reps: int = 2) -> dict:
+    """The WKV loop of one train step against the step, timed in turns on
+    the host clock (both are bound by launches).  Under ``remat="full"`` a
+    step runs each layer's loop forward twice (the block's first pass and
+    its recomputation in the backward) and backward once: the loop here
+    does that ``n_layers`` times at the step's shapes.  ``step_fn``
+    consumes ``state``."""
+    from repro_torch.models.recurrent import _rwkv_core_scan
+
+    g = torch.Generator(device=DEV).manual_seed(0)
+    h, hd = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    shape = (TRAIN_BATCH, TRAIN_SEQ, h, hd)
+    r, k, v = (torch.randn(shape, generator=g, device=DEV).requires_grad_() for _ in range(3))
+    w = torch.rand(shape, generator=g, device=DEV).requires_grad_()
+    u = torch.randn((h, hd), generator=g, device=DEV).requires_grad_()
+    s0 = torch.zeros((TRAIN_BATCH, h, hd, hd), device=DEV)
+    gy = torch.randn(shape, generator=g, device=DEV)
+
+    def loop():
+        for _ in range(cfg.n_layers):
+            _rwkv_core_scan(r, k, v, w, u, s0)
+            y, _ = _rwkv_core_scan(r, k, v, w, u, s0)
+            torch.autograd.grad(y, (r, k, v, w, u), gy)
+
+    loop()
+    wkv, whole = [], []
+    for _ in range(reps):
+        wkv.append(host_ms(loop)[1])
+        (state, _), ms = host_ms(lambda: step_fn(state, batch))
+        whole.append(ms)
+    out = {"ms": statistics.median(wkv), "step_ms": statistics.median(whole),
+           "loop_ms_runs": wkv, "step_ms_runs": whole}
+    out["share_of_step"] = out["ms"] / out["step_ms"]
+    return out
+
+
+def value_and_grads(params, batch, cfg, device) -> tuple:
+    """(loss, grads in tree order) of ``loss_fn`` through autograd."""
+    from repro_torch.models import loss_fn
+    from repro_torch.models.model import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = loss_fn(tree_unflatten(params, leaves), batch, cfg, device=device)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def train_cpu_check(arch: str, seed: int) -> dict:
+    """One step's f32 loss and gradients on the card and on the CPU, with
+    the model cut to TRAIN_CHECK_LAYERS layers at full width, held to
+    max(floor, LM_BAND x band) leaf by leaf (TRAIN_LOSS_FLOOR,
+    TRAIN_GRAD_FLOOR)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, LMDataPipeline
+    from repro_torch.models import flatten_params, init_params, model
+
+    cfg = get_config(arch, smoke=TRAIN_SMOKE).with_(dtype="float32",
+                                                    n_layers=TRAIN_CHECK_LAYERS)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(seed), device=DEV)
+    names = list(flatten_params(params))
+    batch = LMDataPipeline(DataConfig(cfg.vocab_size, TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH,
+                                      seed=seed), device=entry_device()).next_batch()
+    loss, grads = value_and_grads(params, batch, cfg, entry_device())
+    # the band: the mean of the rows' losses and gradients
+    row_loss, row_grads = 0.0, [torch.zeros_like(g) for g in grads]
+    for i in range(TRAIN_CHECK_BATCH):
+        li, gi = value_and_grads(params, {k: v[i:i + 1] for k, v in batch.items()}, cfg,
+                                 entry_device())
+        row_loss = row_loss + li / TRAIN_CHECK_BATCH
+        for acc, g in zip(row_grads, gi):
+            acc.add_(g / TRAIN_CHECK_BATCH)
+    host = model.tree_map(lambda x: x.cpu(), params)
+    h_loss, h_grads = value_and_grads(host, {k: v.cpu() for k, v in batch.items()}, cfg, "cpu")
+    del params
+    rows = []
+
+    def hold(what, card, row, cpu, scale, floor=TRAIN_GRAD_FLOOR):
+        band = abs_errors(card, row)
+        err = abs_errors(card, cpu)
+        tol = {k: max(v * scale, LM_BAND * band[k]) for k, v in floor.items()}
+        rows.append({"leaf": what, **err, "of_max": err["max_abs_err"] / max(scale, 1e-30),
+                     "tol": tol, "band": band,
+                     "of_tol": max((err[k] / tol[k] for k in tol if tol[k] > 0), default=0.0),
+                     "ok": all(err[k] <= tol[k] for k in tol)})
+
+    hold("loss", loss, row_loss, h_loss, abs(float(loss)), TRAIN_LOSS_FLOOR)
+    for name, g, r, hg in zip(names, grads, row_grads, h_grads):
+        hold(name, g, r, hg, float(g.abs().max()))
+    rows.sort(key=lambda x: -x["of_tol"])
+    if not all(x["ok"] for x in rows):
+        raise AssertionError(f"{arch}: f32 loss and gradients, card against CPU, worst "
+                             f"first: {json.dumps(rows[:6])}")
+    return {"layers": TRAIN_CHECK_LAYERS, "batch": TRAIN_CHECK_BATCH,
+            "seq_len": TRAIN_CHECK_SEQ, "loss_card": float(loss), "loss_cpu": float(h_loss),
+            "leaves_checked": len(rows), "worst": rows[:3]}
+
+
+def phase_train(seed: int) -> dict:
+    """RWKV6-1.6B trained at full width on the card through the port's
+    Trainer; its whole TrainState saved through D-Rex SC at step 4, a node
+    holding chunks lost, the state restored bit-equal to step 4's, and
+    steps 5-6 run again bit-equal to the uninterrupted run; the WKV loop's
+    share of a step; the f32 card-against-CPU check.  Every launch count
+    is set to 0 just before the run and read just after the resumed run."""
+    from repro_torch.checkpoint import CheckpointPolicy, DRexCheckpointer, StorageFabric
+    from repro_torch.configs import get_config
+    from repro_torch.core import shapes
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops, pb_frontier, rs_bitmatmul
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.storage import make_node_set
+    from repro_torch.train import (Trainer, TrainerConfig, TrainStateCheckpointer,
+                                   init_train_state, make_train_step, train_state_dict)
+
+    cfg = get_config(TRAIN_ARCH, smoke=TRAIN_SMOKE)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    if not torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("[train] runs under torch.use_deterministic_algorithms(True)")
+    t_phase = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fabric = StorageFabric(make_node_set("most_used"))
+    ck = DRexCheckpointer(fabric, "drex_sc", CheckpointPolicy(), device=DEV)
+    like = init_train_state(cfg, torch.Generator(), device="meta")
+    recorder = SnapshotCheckpointer(TrainStateCheckpointer(ck, like))
+
+    def trainer(step_ms: list):
+        t = Trainer(cfg, opt_cfg,
+                    TrainerConfig(steps=TRAIN_STEPS, log_every=1, ckpt_every=TRAIN_CKPT_EVERY,
+                                  seed=seed, async_ckpt=True),
+                    data_cfg=DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed),
+                    checkpointer=recorder, log_fn=lambda s, m: None, device=entry_device())
+        timed_steps(t, step_ms)
+        return t
+
+    # The [train] path's run: every count set to 0 just before, read after
+    # the resumed steps.
+    shapes.reset()
+    ops.reset_launch_stats()
+    rs_bitmatmul.reset_launches()
+    pb_frontier.reset_launches()
+
+    step_ms: list = []
+    straight = trainer(step_ms)
+    final = straight.run()
+    marks = [("train_and_save", time.perf_counter())]
+    device_peak_train = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
+    n_params = sum(t.numel() for n, t in train_state_dict(final).items()
+                   if n.startswith("params."))
+    state_bytes = sum(t.numel() * t.element_size() for t in train_state_dict(final).values())
+    manifest = ck._manifests[TRAIN_CKPT_EVERY]
+    groups = [g for m in manifest["leaves"] for g in m["groups"]]
+    hist = collections.Counter(f"({g['k']},{g['p']})" for g in groups)
+    after_save = ops.launch_stats()
+    frontier_after_save = pb_frontier.launches
+    if DEV == "cuda" and (after_save["encode"] == 0 or frontier_after_save == 0):
+        raise AssertionError(f"the save skipped a kernel: {after_save}, "
+                             f"{frontier_after_save} pb_frontier launches")
+    history = list(straight.history)
+    for h in history:
+        if not all(np.isfinite(h[k]) for k in ("loss", "nll", "grad_norm", "lr")):
+            raise AssertionError(f"[train] step {h['step']}: a metric is not finite: {h}")
+    at_save = recorder.snapshot
+
+    victim = groups[0]["node_ids"][0]
+    fabric.fail_node(victim)
+    resumed_ms: list = []
+    resumed = trainer(resumed_ms)
+    state, restore_ms = host_ms(resumed.init_or_restore)
+    marks.append(("restore", time.perf_counter()))
+    if resumed.start_step != TRAIN_CKPT_EVERY:
+        raise AssertionError(f"restored step {resumed.start_step}, saved {TRAIN_CKPT_EVERY}")
+    restored = train_state_dict(state)
+    if list(restored) != list(at_save):
+        raise AssertionError("the restored TrainState's leaves differ from the saved one's")
+    for name, t in restored.items():
+        if not (t.dtype == at_save[name].dtype and torch.equal(t, at_save[name].to(t.device))):
+            raise AssertionError(f"restore after node {victim} failed differs at {name}")
+    del at_save, restored
+    recorder.snapshot = {}
+    after_restore = ops.launch_stats()
+    state = resumed.run(state)
+    marks.append(("resume", time.perf_counter()))
+    for a, b in zip(history[TRAIN_CKPT_EVERY:], resumed.history):
+        if a != {**b, "steps_per_s": a["steps_per_s"]}:
+            raise AssertionError(f"resumed step {b['step']} differs: {b} against {a}")
+    if [h["step"] for h in resumed.history] != list(range(TRAIN_CKPT_EVERY + 1,
+                                                          TRAIN_STEPS + 1)):
+        raise AssertionError(f"the resumed run logged {resumed.history}")
+    want = train_state_dict(final)
+    for name, t in train_state_dict(state).items():
+        if not torch.equal(t, want[name]):
+            raise AssertionError(f"the resumed run's final state differs at {name}")
+    launches = rs_bitmatmul.launches
+    per_kind = ops.launch_stats()
+    frontier_launches = pb_frontier.launches
+    issued = sorted(shapes.issued_shapes(ops.CENSUS_KERNEL))
+    frontier_shapes = sorted(shapes.issued_shapes("pb_frontier"))
+    ck_stats = dict(ck.stats)
+    ck.close()
+    if DEV == "cuda" and (launches != per_kind["encode"] + per_kind["decode"]
+                          or per_kind["decode"] == 0):
+        raise AssertionError(f"launch counts disagree: {launches} vs {per_kind}")
+    device_peak_phase = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
+    del final, want, fabric, ck
+    share = wkv_train_share(make_train_step(cfg, opt_cfg), state, resumed.data.next_batch(),
+                            cfg)
+    del state
+    marks.append(("wkv_loop", time.perf_counter()))
+
+    gb = state_bytes / 1e9
+    p50 = statistics.median(step_ms)
+    report = {
+        "model": cfg.name, "params": n_params, "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "remat": cfg.remat, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "ckpt_at": TRAIN_CKPT_EVERY, "lr": TRAIN_LR,
+        "train_state": {"leaves": len(manifest["leaves"]), "bytes": state_bytes,
+                        "moments_and_master_included": True},
+        "step_ms": step_ms, "step_ms_p50": p50,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+        "resumed_step_ms": resumed_ms,
+        "history": [{k: h[k] for k in ("step", "loss", "nll", "grad_norm", "lr")}
+                    for h in history],
+        "wkv_loop": share,
+        "save": {"stall_s": recorder.times["stall_s"], "save_s": recorder.times["save_s"],
+                 "save_GBps": gb / recorder.times["save_s"],
+                 "place_s": ck_stats["place_s"], "encode_s": ck_stats["encode_s"],
+                 "groups": len(groups), "kp_histogram": dict(hist),
+                 "bytes_stored": ck_stats["bytes_stored"]},
+        "failed_node": victim,
+        "restore_s": restore_ms / 1e3, "restore_GBps": gb / (restore_ms / 1e3),
+        "restored_bit_equal_to_step": TRAIN_CKPT_EVERY,
+        "resumed_bit_equal": {"losses": True, "final_state": True,
+                              "steps": [h["step"] for h in resumed.history]},
+        "launches": {"rs_bitmatmul": launches, "save_encode": after_save["encode"],
+                     "restore_decode": after_restore["decode"] - after_save["decode"],
+                     "pb_frontier": frontier_launches},
+        "pb_frontier_shapes": [list(s) for s in frontier_shapes],
+        "host_peak_rss_GB": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+        "device_peak_GB": {"train_and_save": device_peak_train,
+                           "with_restored_state": device_peak_phase},
+        "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+    }
+    report["phase_parts_s"] = {name: t - prev for (_, prev), (name, t)
+                               in zip([("start", t_phase)] + marks, marks)}
+    log("[train] " + json.dumps(report))
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["card_vs_cpu_f32"] = {arch: train_cpu_check(arch, seed)
+                                 for arch in TRAIN_CHECK_ARCHS}
+    report["card_vs_cpu_s"] = time.perf_counter() - t0
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("[train] card against CPU, f32: " + json.dumps(
+        {k: report[k] for k in ("card_vs_cpu_f32", "card_vs_cpu_s", "phase_s")}))
+    return {"report": report, "issued": issued, "launches": launches,
+            "frontier_launches": frontier_launches, "frontier_shapes": frontier_shapes}
+
+
+# -- 10. timing ---------------------------------------------------------------
+
+
+def by_shape(issued_by_path: dict) -> dict:
+    """{shape: the paths that launched it} over ``{path: shapes}``."""
+    out = collections.defaultdict(list)
+    for path, issued in issued_by_path.items():
+        for shape in issued:
+            out[shape].append(path)
+    return dict(sorted(out.items()))
+
+
+def phase_timing(issued_by_path: dict, seed: int) -> list[dict]:
     """rs_bitmatmul against its plain version at every (R, K, B) the main
-    path launched: byte-equal, then timed (median of CUDA-event runs)."""
+    and training paths launched: byte-equal, then timed (median of
+    CUDA-event runs)."""
     from repro_torch.ec import gf256
     from repro_torch.kernels import ref, rs_bitmatmul
 
     rng = np.random.default_rng(seed)
     rows = []
-    for r8, k8, blocks, block_bytes, dev in issued:
+    for (r8, k8, blocks, block_bytes, dev), paths in by_shape(issued_by_path).items():
         if dev != "cuda":
             continue
         r, k, b = r8 // 8, k8 // 8, blocks * block_bytes
@@ -1669,7 +2035,7 @@ def phase_timing(issued: list, seed: int) -> list[dict]:
         plain_ms = cuda_time_ms(lambda: ref.bitmatmul_ref(bm, d), reps=3)
         bound, by = bound_ms(r, k, b)
         moved = (k + r) * b
-        rows.append({"R": r, "K": k, "B": b, "bytes": moved, "ms": ms,
+        rows.append({"paths": paths, "R": r, "K": k, "B": b, "bytes": moved, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                      "GBps": moved / ms / 1e6, "max_abs_err": err})
         log("[timing] " + json.dumps(rows[-1]))
@@ -1703,9 +2069,10 @@ def cuda_time_once(fn) -> tuple:
 WIDE_DAYS = 7.0
 
 
-def phase_frontier_timing(main_shapes: list) -> list[dict]:
-    """pb_frontier against its plain version at the shapes the main path
-    launched (the save's own fail probabilities and target), at the
+def phase_frontier_timing(shapes_by_path: dict) -> list[dict]:
+    """pb_frontier against its plain version at the shapes the main and
+    training paths launched (their saves' own fail probabilities and
+    target), at the
     decisions-at-scale shape (64 items, the freest rung(1025) nodes of the
     10,000-node cluster), at the committed stream's shape (one item) and on
     a wide row (all 10,000 nodes, the shared-memory variant): equal, then
@@ -1718,7 +2085,8 @@ def phase_frontier_timing(main_shapes: list) -> list[dict]:
 
     most_used = ClusterView.from_nodes(make_node_set("most_used"))
     big = scale_cluster(SCALE_NODES, 0)
-    cases = [("main", most_used, 30.0, 0.999, s) for s in main_shapes]
+    cases = [("+".join(paths), most_used, 30.0, 0.999, s)
+             for s, paths in by_shape(shapes_by_path).items()]
     M = prefilter.sc_cap(1024)
     S_pad, L_pad = _shape_plan(M, 1024)
     cases.append(("scale", big, 365.0, 0.99, (SCALE_BATCH, S_pad, L_pad, M, L_pad + 1, "cuda")))
@@ -1787,13 +2155,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_run = timed("main", phase_main, rwkv)
     del rwkv
-    rows = timed("timing", phase_timing, main_run["issued"], args.seed)
-    frows = timed("frontier_timing", phase_frontier_timing, main_run["frontier_shapes"])
-    # The headline shape is the save's widest encode wave.
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    try:
+        train_run = timed("train", phase_train, args.seed)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    rows = timed("timing", phase_timing,
+                 {"main": main_run["issued"], "train": train_run["issued"]}, args.seed)
+    frows = timed("frontier_timing", phase_frontier_timing,
+                  {"main": main_run["frontier_shapes"], "train": train_run["frontier_shapes"]})
+    # The headline shape is the main path's save's widest encode wave.
     save = {(r8 // 8, k8 // 8, n * bb) for r8, k8, n, bb, _ in main_run["save_shapes"]}
-    head = max((x for x in rows if (x["R"], x["K"], x["B"]) in save),
+    head = max((x for x in rows if (x["R"], x["K"], x["B"]) in save and "main" in x["paths"]),
                key=lambda x: x["B"])
-    fhead = max((x for x in frows if x["at"] == "main"), key=lambda x: x["B"] * x["S"] * x["L"])
+    fhead = max((x for x in frows if "main" in x["at"].split("+")),
+                key=lambda x: x["B"] * x["S"] * x["L"])
     kernels = [
         {
             "name": "rs_bitmatmul",
@@ -1805,6 +2183,7 @@ def main() -> int:
                 "checkpoint_main": main_run["launches"],
                 # the LM path: its checkpoint is [main]; serving codes no bytes
                 "lm_path": main_run["launches"],
+                "train": train_run["launches"],
             },
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "matches_plain": True,
@@ -1827,6 +2206,7 @@ def main() -> int:
             "launches_by_path": {
                 "checkpoint_main": main_run["frontier_launches"],
                 "lm_path": main_run["frontier_launches"],
+                "train": train_run["frontier_launches"],
                 "sim_at_scale": sum(sim[f"sim_at_scale/{s}"]["pb_frontier_launches"]
                                     for s in (0, 1)),
                 "serve_lane": sum(r["pb_frontier_launches"] for r in serve.values()
@@ -1834,7 +2214,8 @@ def main() -> int:
                 "serve_at_scale": sum(r["pb_frontier_launches"] for r in serve.values()
                                       if r["run"] == "serve_at_scale"),
             },
-            "variants_by_path": path_shapes["variants_by_path"],
+            "variants_by_path": {**path_shapes["variants_by_path"], "train": sorted({
+                frontier_variant(B * S, W) for B, S, _, _, W, _ in train_run["frontier_shapes"]})},
             "max_abs_err": max(x["max_abs_err"] for x in frows),
             "matches_plain": True,
             "ms": fhead["ms"],
@@ -1848,8 +2229,11 @@ def main() -> int:
     ]
     lm_fields = ("prefill_ms", "decode_ms_per_step_p50", "decode_tokens_per_s",
                  "device_peak_GB", "wkv_loop", "decode_step_profile")
+    train_fields = ("step_ms_p50", "tokens_per_s", "wkv_loop", "save", "restore_GBps",
+                    "device_peak_GB", "host_peak_rss_GB")
     log("[summary] " + json.dumps({"cuts": CUTS, "phase_s": phase_s, "lm": {
         arch: {f: r[f] for f in lm_fields if f in r} for arch, r in lm_reports.items()},
+        "train": {f: train_run["report"][f] for f in train_fields},
         "scale": {
         k: {f: v[f] for f in ("batch_disagree", "committed_disagree",
                               "batch_ms_per_decision_card",

@@ -1,10 +1,11 @@
-"""Model zoo of the port: the serving path of the dense GQA transformers
-(``block_pattern="attn"``) and RWKV6.  Griffin, MoE, the encoder-decoder
-and training (``loss_fn``) wait for later slices (``ROADMAP.md``)."""
+"""Model zoo of the port: the dense GQA transformers
+(``block_pattern="attn"``) and RWKV6, for serving and training
+(``loss_fn``).  Griffin, MoE and the encoder-decoder wait for later
+slices (``ROADMAP.md``)."""
 
 from .config import EncoderConfig, ModelConfig, MoEConfig
 from .interop import flatten_params, params_from_numpy, unflatten_params
-from .model import decode_step, forward, init_params, init_serve_state, prefill
+from .model import decode_step, forward, init_params, init_serve_state, loss_fn, prefill
 
 __all__ = [
     "ModelConfig",
@@ -12,6 +13,7 @@ __all__ = [
     "EncoderConfig",
     "init_params",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "init_serve_state",

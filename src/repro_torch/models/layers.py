@@ -204,15 +204,19 @@ def attention_decode(p, x, cache, pos: int, cfg: ModelConfig, window: int = 0,
     """One-token decode against a pre-allocated KV cache.
 
     x: (B,1,E); cache: {"k","v"}: (B,S,Hkv,D) holding absolute positions
-    0..S-1; ``pos`` is the new token's position and its write index.  The
-    cache is updated in place.  Returns (out (B,1,E), cache)."""
+    0..S-1; ``pos`` is the new token's position (RoPE uses it) and its
+    write index, clamped to [0, S-1] as the reference's
+    ``dynamic_update_slice`` clamps it: at ``pos >= S`` the token
+    overwrites slot S-1 and every slot is valid.  The cache is updated in
+    place.  Returns (out (B,1,E), cache)."""
     if ring:
         raise not_ported("ring-buffer decode (griffin local attention)")
     s = cache["k"].shape[1]
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     q, k1, v1 = _qkv(p, x, cfg, positions)
-    cache["k"][:, pos] = k1[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v1[:, 0].to(cache["v"].dtype)
+    widx = min(max(pos, 0), s - 1)
+    cache["k"][:, widx] = k1[:, 0].to(cache["k"].dtype)
+    cache["v"][:, widx] = v1[:, 0].to(cache["v"].dtype)
     kj = torch.arange(s, device=x.device)[None, :]
     valid = kj <= pos
     if window > 0:

@@ -1,12 +1,20 @@
-"""Model assembly of the port: init / forward / prefill / decode.
+"""Model assembly of the port: init / forward / loss / prefill / decode.
 
-The port of ``repro.models.model`` for the serving path of two block
-patterns: ``"attn"`` (dense GQA transformers: qwen3, yi, nemotron,
-chameleon) and ``"rwkv6"``.  Params are the reference's tree — a nested
-dict whose layer leaves are stacked ``(n_layers, ...)`` tensors — and a
-layer is the view ``leaf[i]`` of each; the layer loop is a Python loop
-where the reference scans.  Logits are computed in the compute dtype and
-only then cast to f32, as the reference's heads do.
+The port of ``repro.models.model`` for two block patterns: ``"attn"``
+(dense GQA transformers: qwen3, yi, nemotron, chameleon) and
+``"rwkv6"``.  Params are the reference's tree — a nested dict whose layer
+leaves are stacked ``(n_layers, ...)`` tensors — and a layer is a view of
+each; the layer loop is a Python loop where the reference scans.  Logits
+are computed in the compute dtype and only then cast to f32, as the
+reference's heads do.
+
+Training: ``loss_fn`` is differentiated by ``torch.autograd``.
+``forward`` splits each stacked leaf once (``unbind``, whose backward is
+one ``stack``) and, when something is differentiated, runs each layer's
+block under the config's remat policy (``_maybe_remat``): ``"full"``
+recomputes the block in the backward, ``"minimal"`` keeps its weight
+products (``aten.mm``) and recomputes the rest, ``"none"`` keeps
+everything.  The three give the same bits.
 
 Every entry point takes ``device=``: ``None`` means CUDA (and raises
 without a card), ``"cpu"`` runs on the CPU.  A param or state tensor on
@@ -14,15 +22,16 @@ another device than the one asked for raises; nothing is moved behind
 the caller's back but the host token ids.
 
 Griffin, MoE and encoder-decoder configs raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports them.  ``loss_fn`` and the
-training helpers wait for the training slice.
+naming the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Mapping
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch._device import resolve_device
 
@@ -72,13 +81,29 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree: a view of every leaf."""
-    return tree_map(lambda x: x[i], tree)
+def tree_unflatten(like, leaves) -> dict:
+    """The tree of ``like``'s structure holding ``leaves``, given in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, Mapping):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
+
+
+def _layers(tree, n: int) -> list:
+    """Every layer of a stacked tree, views of each leaf split once:
+    ``unbind``'s backward is one ``stack`` a leaf, where ``n`` indexings
+    would add ``n`` full-size gradients."""
+    split = tree_map(lambda x: x.unbind(0), tree)
+    return [tree_map(lambda parts: parts[i], split) for i in range(n)]
 
 
 def _stack(trees: list):
-    """Inverse of :func:`_layer` over a list of per-layer trees."""
+    """Inverse of :func:`_layers`."""
     first = trees[0]
     if isinstance(first, Mapping):
         return {k: _stack([t[k] for t in trees]) for k in first}
@@ -174,6 +199,53 @@ def _positions(b: int, t: int, dev) -> torch.Tensor:
     return torch.arange(t, dtype=torch.int32, device=dev)[None, :].expand(b, t)
 
 
+# ---------------------------------------------------------------------------
+# backward-dtype barrier and remat policy
+# ---------------------------------------------------------------------------
+
+
+class _GradToBf16(torch.autograd.Function):
+    """Identity whose cotangent is cast to bf16 — stops the f32 loss
+    cotangent from promoting the whole backward pass to f32."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def _grad_to_bf16(x):
+    return _GradToBf16.apply(x)
+
+
+#: what ``remat="minimal"`` keeps: the weight products, the counterpart of
+#: ``dots_with_no_batch_dims_saveable`` (attention's batched einsums run
+#: as ``bmm`` and are recomputed).
+_SAVED_UNDER_MINIMAL = [torch.ops.aten.mm.default]
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """A block ``fn(h, lp)`` under the config's remat policy.  Where
+    nothing is differentiated, nothing is saved, so ``fn`` runs plain."""
+    if cfg.remat == "none":
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "minimal":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _SAVED_UNDER_MINIMAL)
+
+    def wrapped(h, lp):
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in [h, *tree_leaves(lp)])):
+            return fn(h, lp)
+        return checkpoint(fn, h, lp, **kw)
+
+    return wrapped
+
+
 def forward(params, tokens, cfg: ModelConfig, frames=None, device=None):
     """Full-sequence causal forward -> (logits (B, T, V) f32, aux loss)."""
     if frames is not None:
@@ -183,15 +255,31 @@ def forward(params, tokens, cfg: ModelConfig, frames=None, device=None):
     b, t = tokens.shape
     x = params["embed"][tokens].to(cfg.dt)
     positions = _positions(b, t, dev)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+
+    def block(h, lp):
         if cfg.block_pattern == "rwkv6":
-            x, _ = _rwkv_block(cfg, lp, x)
-            continue
-        x = x + attention_full(lp["attn"], rms_norm_cfg(x, lp["norm1"], cfg), cfg,
+            return _rwkv_block(cfg, lp, h)[0]
+        h = h + attention_full(lp["attn"], rms_norm_cfg(h, lp["norm1"], cfg), cfg,
                                positions, window=cfg.attn_window)
-        x = x + mlp_apply(lp["mlp"], rms_norm_cfg(x, lp["norm2"], cfg), cfg)
+        return h + mlp_apply(lp["mlp"], rms_norm_cfg(h, lp["norm2"], cfg), cfg)
+
+    block = _maybe_remat(block, cfg)
+    for lp in _layers(params["layers"], cfg.n_layers):
+        x = block(x, lp)
+    if cfg.bwd_bf16:
+        x = _grad_to_bf16(x)
     return _head(params, x, cfg), torch.zeros((), dtype=torch.float32, device=dev)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, device=None):
+    """Cross-entropy LM loss. batch: {"tokens", "labels"}.  Returns
+    ``(nll + aux, {"nll", "aux"})``, f32 scalars."""
+    logits, aux = forward(params, batch["tokens"], cfg, batch.get("frames"), device=device)
+    labels = _tokens(batch["labels"], logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dict:
@@ -227,16 +315,17 @@ def decode_step(params, token, pos: int, state, cfg: ModelConfig, device=None):
     ls = state["layers"]
     if cfg.block_pattern == "rwkv6":
         new = []
-        for i in range(cfg.n_layers):
-            x, st = _rwkv_block(cfg, _layer(params["layers"], i), x, _layer(ls, i))
+        for lp, st in zip(_layers(params["layers"], cfg.n_layers), _layers(ls, cfg.n_layers)):
+            x, st = _rwkv_block(cfg, lp, x, st)
             new.append(st)
         new_state = {"layers": _stack(new)}
     else:
         kv = {"k": ls["k"].clone(), "v": ls["v"].clone()}
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+        # the per-layer views write through to ``kv``
+        for lp, cache in zip(_layers(params["layers"], cfg.n_layers),
+                             _layers(kv, cfg.n_layers)):
             o, _ = attention_decode(lp["attn"], rms_norm_cfg(x, lp["norm1"], cfg),
-                                    _layer(kv, i), pos, cfg, window=cfg.attn_window)
+                                    cache, pos, cfg, window=cfg.attn_window)
             x = x + o
             x = x + mlp_apply(lp["mlp"], rms_norm_cfg(x, lp["norm2"], cfg), cfg)
         new_state = {"layers": kv}
@@ -257,8 +346,7 @@ def prefill(params, tokens, cfg: ModelConfig, frames=None, device=None):
     x = params["embed"][tokens].to(cfg.dt)
     positions = _positions(b, t, dev)
     states = []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for lp in _layers(params["layers"], cfg.n_layers):
         if cfg.block_pattern == "rwkv6":
             x, st = _rwkv_block(cfg, lp, x)
             states.append(st)
@@ -279,7 +367,9 @@ __all__ = [
     "forward",
     "init_params",
     "init_serve_state",
+    "loss_fn",
     "prefill",
     "tree_leaves",
     "tree_map",
+    "tree_unflatten",
 ]

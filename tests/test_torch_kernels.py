@@ -246,4 +246,4 @@ assert not bad, bad
     n_modules = int(out.stdout.split()[0])
     # every module of the port so far: a module dropped from the package
     # fails here
-    assert n_modules >= 59
+    assert n_modules >= 70

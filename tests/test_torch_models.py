@@ -439,6 +439,28 @@ def test_decode_matches_forward_in_port():
         assert np.abs(run["port"]["decode"][0] - run["port"]["forward"]).max() < F32_TOL
 
 
+@pytest.mark.parametrize("pos", [4, 7])
+def test_decode_past_the_cache_end(pos):
+    """At ``pos`` >= the cache length S the reference's
+    ``dynamic_update_slice`` clamps the write to slot S-1 (RoPE stays at
+    ``pos``, every slot is valid); the port clamps the same way.  Logits
+    and cache within F32_TOL."""
+    jc, tc = configs("qwen3_8b", dtype="float32")
+    jparams = jax_params("qwen3_8b", "float32")
+    rng = np.random.default_rng(30)
+    kv = (jc.n_layers, B, 4, jc.n_kv_heads, jc.dhead)
+    cache = {n: rng.standard_normal(kv).astype(np.float32) for n in ("k", "v")}
+    tok = rng.integers(0, jc.vocab_size, (B, 1)).astype(np.int32)
+    a, jst = jax.jit(lambda p, s: j_decode(p, tok, jnp.int32(pos), s, jc))(
+        jparams, {"layers": {n: jnp.asarray(c) for n, c in cache.items()}})
+    b, tst = decode_step(to_port(jparams), tok, pos,
+                         {"layers": {n: torch.from_numpy(c.copy()) for n, c in cache.items()}},
+                         tc, device="cpu")
+    assert np.abs(_np(a) - b.numpy()).max() < F32_TOL
+    for n in ("k", "v"):
+        assert np.abs(_np(jst["layers"][n]) - tst["layers"][n].numpy()).max() < F32_TOL
+
+
 # -- what waits, and the device rule ---------------------------------------------------
 
 
