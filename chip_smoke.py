@@ -98,8 +98,28 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    band the run measures, as ``[lm]`` does).
    Every launch count is set to 0 just before the run and read after the
    resumed steps.
-10. **Timing** of each kernel and its plain version, with CUDA events, at
-   the shapes the main and training paths launched (and, for
+10. **The other model families** (``[families]``): Qwen3-30B-A3B and
+   Qwen1.5-MoE-A2.7B (MoE), RecurrentGemma-9B (Griffin) and whisper-tiny
+   (encoder-decoder, with (4, 1500, 384) frame embeddings from ``--seed``)
+   at full width in bf16, one at a time, params from ``init_params`` on
+   the card (leaf names, shapes and dtypes equal to ``FAMILY_LAYOUTS``,
+   the JAX package's layout): 4 x 128 prompt tokens, 32 greedy new tokens
+   twice, tokens and logits bit-equal; prefill ms, decode ms per step
+   (p50), tokens/s, a profiled decode step's kernels and busy share, the
+   device peak.  Then the f32 model on the card and on the CPU (the MoE
+   configs at 2 layers, RecurrentGemma-9B at 5, whisper-tiny whole, full
+   width, B = 2, T = 16): the logits of ``forward``, ``prefill`` and 8
+   teacher-forced decode steps, ``loss_fn``'s loss, aux and gradients
+   within the CPU tests' tolerances, and no MoE routing choice that
+   differs.  Then RecurrentGemma-9B's 20.89 GB params (51 leaves, its
+   ``groups.rec`` list among them) and whisper-tiny's are each saved
+   through D-Rex SC on the ``most_used`` node set (policy defaults), a
+   node holding chunks fails, ``restore_latest`` gives every leaf
+   bit-equal, and the restored params serve the same tokens and
+   bit-equal logits.  Every launch count is set to 0 just before the
+   phase and read just after.
+11. **Timing** of each kernel and its plain version, with CUDA events, at
+   the shapes the main, training and families paths launched (and, for
    ``pb_frontier``, at the decisions-at-scale shape, the committed
    stream's shape and a wide row on the shared-memory variant), with the
    variant and ns per DP step.
@@ -199,6 +219,15 @@ CUTS = [
     "24 and Qwen3-8B's 36), B = 2, T = 16, one step's loss and gradients",
     "qwen3_8b is trained only in that check: its TrainState (8.19 B params x 14 bytes, "
     "115 GB) does not fit on one 80 GB card",
+    "[families] serves qwen3_moe_30b_a3b, qwen2_moe_a2_7b, recurrentgemma_9b and "
+    "whisper_tiny and trains none of them: their TrainStates (14 bytes a param: 427, 212, "
+    "146 GB) do not fit on one 80 GB card but whisper_tiny's, which waits with the bench "
+    "lanes",
+    "[families]' f32 card-against-CPU check runs the MoE configs at 2 of their 48 and 24 "
+    "layers and recurrentgemma_9b at 5 of 38 (one (R, R, A) group and a 2-layer tail), "
+    "full width, B = 2, T = 16, 8 decode steps, one step's loss and gradients",
+    "the MoE configs are served, not checkpointed: saves of 61.1 and 30.3 GB would add "
+    "~75-120 s at the main path's ~0.7-0.8 GB/s",
 ]
 
 #: the card every phase runs on (a CPU rehearsal of phases 3-7 and 9 at a tiny
@@ -1284,17 +1313,19 @@ def host_ms(fn) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def teacher_forced(params, cfg, ids: np.ndarray, n_prompt: int, device) -> tuple:
-    """Prefill ``ids[:, :n_prompt]`` as the serving engine does (a cache
-    sized for all of ``ids``) and decode the rest of ``ids`` one token at
-    a time.  Returns (logits at positions n_prompt-1 .. T-2, stacked
-    (B, T-n_prompt, V), prefill ms, per-step decode ms)."""
+def teacher_forced(params, cfg, ids: np.ndarray, n_prompt: int, device,
+                   frames=None) -> tuple:
+    """Prefill ``ids[:, :n_prompt]`` (and an encoder-decoder's ``frames``)
+    as the serving engine does (a cache sized for all of ``ids``) and
+    decode the rest of ``ids`` one token at a time.  Returns (logits at
+    positions n_prompt-1 .. T-2, stacked (B, T-n_prompt, V), prefill ms,
+    per-step decode ms)."""
     from repro_torch.models import decode_step
     from repro_torch.serve.engine import prime
 
     t = ids.shape[1]
     (logits, state), prefill_ms = host_ms(lambda: prime(params, ids[:, :n_prompt], cfg, t,
-                                                        device))
+                                                        device, frames=frames))
     out, step_ms = [logits], []
     for pos in range(n_prompt, t - 1):
         (logits, state), ms = host_ms(lambda: decode_step(params, ids[:, pos:pos + 1], pos,
@@ -1536,7 +1567,7 @@ def serve_restored(lm: dict, restored: dict) -> dict:
     params = unflatten_params(restored)
     eng = ServingEngine(lm["cfg"], params, ServeConfig(max_new_tokens=LM_NEW),
                         device=entry_device())
-    ids, logits = eng.generate(lm["prompts"], return_logits=True)
+    ids, logits = eng.generate(lm["prompts"], frames=lm.get("frames"), return_logits=True)
     if not np.array_equal(ids, lm["ids"]):
         raise AssertionError("the restored params served other tokens")
     if not torch.equal(logits, lm["logits"]):
@@ -1997,7 +2028,460 @@ def phase_train(seed: int) -> dict:
             "frontier_launches": frontier_launches, "frontier_shapes": frontier_shapes}
 
 
-# -- 10. timing ---------------------------------------------------------------
+# -- 10. the other model families ---------------------------------------------
+
+#: [families]: the MoE, Griffin and encoder-decoder configs, served at full
+#: width in bf16 one at a time (the largest first, so nothing else is on
+#: the card beside it); the two whose params go through the checkpoint.
+FAMILY_ARCHS = ("qwen3_moe_30b_a3b", "qwen2_moe_a2_7b", "recurrentgemma_9b", "whisper_tiny")
+FAMILY_CKPT = ("recurrentgemma_9b", "whisper_tiny")
+#: the f32 card-against-CPU check: depth (None = every layer), batch,
+#: prompt, decode steps.
+FAMILY_CHECK_LAYERS = {"qwen3_moe_30b_a3b": 2, "qwen2_moe_a2_7b": 2, "recurrentgemma_9b": 5,
+                       "whisper_tiny": None}
+FAMILY_CHECK_BATCH, FAMILY_CHECK_PROMPT, FAMILY_CHECK_STEPS = 2, 16, 8
+#: The CPU tests' tolerances (tests/test_torch_models.py, test_torch_loss.py):
+#: f32 logits within 1e-4, the loss and the MoE aux within 1e-5 relative,
+#: each gradient leaf within 1e-4 of its max |g|.
+FAMILY_LOGIT_TOL, FAMILY_LOSS_REL, FAMILY_GRAD_REL = 1e-4, 1e-5, 1e-4
+#: a CPU rehearsal sets this to run the smoke configs.
+FAMILIES_SMOKE = False
+
+#: Parameter leaves of the four configs in the JAX package's layout
+#: (``repro.models.model.init_params(get_config(arch))`` under
+#: ``jax.eval_shape``): (name, shape[, dtype]), bf16 unless named.
+FAMILY_LAYOUTS = {
+    'qwen2_moe_a2_7b': [
+        ('embed', (151936, 2048)),
+        ('final_norm', (2048,)),
+        ('layers.attn.wk', (24, 2048, 16, 128)),
+        ('layers.attn.wo', (24, 16, 128, 2048)),
+        ('layers.attn.wq', (24, 2048, 16, 128)),
+        ('layers.attn.wv', (24, 2048, 16, 128)),
+        ('layers.moe.router', (24, 2048, 64), 'float32'),
+        ('layers.moe.shared.wg', (24, 2048, 5632)),
+        ('layers.moe.shared.wi', (24, 2048, 5632)),
+        ('layers.moe.shared.wo', (24, 5632, 2048)),
+        ('layers.moe.wg', (24, 64, 2048, 1408)),
+        ('layers.moe.wi', (24, 64, 2048, 1408)),
+        ('layers.moe.wo', (24, 64, 1408, 2048)),
+        ('layers.norm1', (24, 2048)),
+        ('layers.norm2', (24, 2048)),
+        ('lm_head', (2048, 151936)),
+    ],  # 16 leaves, 15,146,256,384 params, 30.30 GB
+    'qwen3_moe_30b_a3b': [
+        ('embed', (151936, 2048)),
+        ('final_norm', (2048,)),
+        ('layers.attn.k_norm', (48, 128)),
+        ('layers.attn.q_norm', (48, 128)),
+        ('layers.attn.wk', (48, 2048, 4, 128)),
+        ('layers.attn.wo', (48, 32, 128, 2048)),
+        ('layers.attn.wq', (48, 2048, 32, 128)),
+        ('layers.attn.wv', (48, 2048, 4, 128)),
+        ('layers.moe.router', (48, 2048, 128), 'float32'),
+        ('layers.moe.wg', (48, 128, 2048, 768)),
+        ('layers.moe.wi', (48, 128, 2048, 768)),
+        ('layers.moe.wo', (48, 128, 768, 2048)),
+        ('layers.norm1', (48, 2048)),
+        ('layers.norm2', (48, 2048)),
+        ('lm_head', (2048, 151936)),
+    ],  # 15 leaves, 30,532,122,624 params, 61.09 GB
+    'recurrentgemma_9b': [
+        ('embed', (256000, 4096)),
+        ('final_norm', (4096,)),
+        ('groups.attn.attn.wk', (12, 4096, 1, 256)),
+        ('groups.attn.attn.wo', (12, 16, 256, 4096)),
+        ('groups.attn.attn.wq', (12, 4096, 16, 256)),
+        ('groups.attn.attn.wv', (12, 4096, 1, 256)),
+        ('groups.attn.mlp.wg', (12, 4096, 12288)),
+        ('groups.attn.mlp.wi', (12, 4096, 12288)),
+        ('groups.attn.mlp.wo', (12, 12288, 4096)),
+        ('groups.attn.norm1', (12, 4096)),
+        ('groups.attn.norm2', (12, 4096)),
+        ('groups.rec.0.mlp.wg', (12, 4096, 12288)),
+        ('groups.rec.0.mlp.wi', (12, 4096, 12288)),
+        ('groups.rec.0.mlp.wo', (12, 12288, 4096)),
+        ('groups.rec.0.norm1', (12, 4096)),
+        ('groups.rec.0.norm2', (12, 4096)),
+        ('groups.rec.0.rg.a_param', (12, 4096), 'float32'),
+        ('groups.rec.0.rg.conv_b', (12, 4096)),
+        ('groups.rec.0.rg.conv_w', (12, 4, 4096)),
+        ('groups.rec.0.rg.wa', (12, 4096, 4096)),
+        ('groups.rec.0.rg.wi', (12, 4096, 4096)),
+        ('groups.rec.0.rg.wo', (12, 4096, 4096)),
+        ('groups.rec.0.rg.wx', (12, 4096, 4096)),
+        ('groups.rec.0.rg.wy', (12, 4096, 4096)),
+        ('groups.rec.1.mlp.wg', (12, 4096, 12288)),
+        ('groups.rec.1.mlp.wi', (12, 4096, 12288)),
+        ('groups.rec.1.mlp.wo', (12, 12288, 4096)),
+        ('groups.rec.1.norm1', (12, 4096)),
+        ('groups.rec.1.norm2', (12, 4096)),
+        ('groups.rec.1.rg.a_param', (12, 4096), 'float32'),
+        ('groups.rec.1.rg.conv_b', (12, 4096)),
+        ('groups.rec.1.rg.conv_w', (12, 4, 4096)),
+        ('groups.rec.1.rg.wa', (12, 4096, 4096)),
+        ('groups.rec.1.rg.wi', (12, 4096, 4096)),
+        ('groups.rec.1.rg.wo', (12, 4096, 4096)),
+        ('groups.rec.1.rg.wx', (12, 4096, 4096)),
+        ('groups.rec.1.rg.wy', (12, 4096, 4096)),
+        ('lm_head', (4096, 256000)),
+        ('tail.mlp.wg', (2, 4096, 12288)),
+        ('tail.mlp.wi', (2, 4096, 12288)),
+        ('tail.mlp.wo', (2, 12288, 4096)),
+        ('tail.norm1', (2, 4096)),
+        ('tail.norm2', (2, 4096)),
+        ('tail.rg.a_param', (2, 4096), 'float32'),
+        ('tail.rg.conv_b', (2, 4096)),
+        ('tail.rg.conv_w', (2, 4, 4096)),
+        ('tail.rg.wa', (2, 4096, 4096)),
+        ('tail.rg.wi', (2, 4096, 4096)),
+        ('tail.rg.wo', (2, 4096, 4096)),
+        ('tail.rg.wx', (2, 4096, 4096)),
+        ('tail.rg.wy', (2, 4096, 4096)),
+    ],  # 51 leaves, 10,444,771,328 params, 20.89 GB
+    'whisper_tiny': [
+        ('embed', (51865, 384)),
+        ('enc_layers.attn.wk', (4, 384, 6, 64)),
+        ('enc_layers.attn.wo', (4, 6, 64, 384)),
+        ('enc_layers.attn.wq', (4, 384, 6, 64)),
+        ('enc_layers.attn.wv', (4, 384, 6, 64)),
+        ('enc_layers.mlp.wg', (4, 384, 1536)),
+        ('enc_layers.mlp.wi', (4, 384, 1536)),
+        ('enc_layers.mlp.wo', (4, 1536, 384)),
+        ('enc_layers.norm1', (4, 384)),
+        ('enc_layers.norm2', (4, 384)),
+        ('enc_norm', (384,)),
+        ('final_norm', (384,)),
+        ('layers.attn.wk', (4, 384, 6, 64)),
+        ('layers.attn.wo', (4, 6, 64, 384)),
+        ('layers.attn.wq', (4, 384, 6, 64)),
+        ('layers.attn.wv', (4, 384, 6, 64)),
+        ('layers.mlp.wg', (4, 384, 1536)),
+        ('layers.mlp.wi', (4, 384, 1536)),
+        ('layers.mlp.wo', (4, 1536, 384)),
+        ('layers.norm1', (4, 384)),
+        ('layers.norm2', (4, 384)),
+        ('layers.norm_x', (4, 384)),
+        ('layers.xattn.wk', (4, 384, 6, 64)),
+        ('layers.xattn.wo', (4, 6, 64, 384)),
+        ('layers.xattn.wq', (4, 384, 6, 64)),
+        ('layers.xattn.wv', (4, 384, 6, 64)),
+        ('lm_head', (384, 51865)),
+    ],  # 27 leaves, 61,074,432 params, 0.12 GB
+}
+
+
+def family_inputs(cfg, b: int, t: int, seed: int) -> tuple:
+    """Token ids (B, T) and, for an encoder-decoder, frame embeddings
+    (B, n_frames, d_model), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    frames = None
+    if cfg.is_encdec:
+        shape = (b, cfg.encoder.n_frames, cfg.d_model)
+        frames = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    return ids, frames
+
+
+def family_serve(arch: str, seed: int) -> dict:
+    """One config served on the card at full width in bf16: init from
+    ``--seed``, the layout against ``FAMILY_LAYOUTS``, 4 greedy requests
+    twice (tokens and logits bit-equal), prefill and decode timings, a
+    profiled decode step, the device peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import flatten_params, init_params, model
+    from repro_torch.serve import ServeConfig, ServingEngine
+    from repro_torch.serve.engine import prime
+
+    cfg = get_config(arch, smoke=FAMILIES_SMOKE)
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params, init_ms = host_ms(lambda: init_params(cfg, gen, device=DEV))
+    flat = flatten_params(params)
+    if not FAMILIES_SMOKE:
+        want = [(n, shape, dt[0] if dt else "bfloat16")
+                for n, shape, *dt in FAMILY_LAYOUTS[arch]]
+        got = [(n, tuple(t.shape), str(t.dtype).removeprefix("torch.")) for n, t in flat.items()]
+        if got != want:
+            raise AssertionError(f"{arch}: the params differ from the JAX layout: "
+                                 f"{[g for g, w in zip(got, want) if g != w][:3]}")
+    if any(t.device.type != DEV for t in flat.values()):
+        raise AssertionError(f"{arch}: params off the card")
+    prompts, frames = family_inputs(cfg, LM_BATCH, LM_PROMPT, seed)
+
+    def serve():
+        eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=LM_NEW),
+                            device=entry_device())
+        ids, logits = eng.generate(prompts, frames=frames, return_logits=True)
+        return eng, ids, logits
+
+    _, ids, logits = serve()
+    eng, ids2, logits2 = serve()
+    if not (np.array_equal(ids, ids2) and torch.equal(logits, logits2)):
+        raise AssertionError(f"{arch}: a second greedy run served other tokens or logits")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: served logits are not finite")
+    _, prefill_ms, step_ms = teacher_forced(params, cfg, ids, LM_PROMPT, entry_device(), frames)
+    prefill_runs = [host_ms(lambda: model.prefill(params, prompts, cfg, frames=frames,
+                                                  device=entry_device()))[1]
+                    for _ in range(3)]
+    _, state = prime(params, ids[:, :LM_PROMPT], cfg, LM_PROMPT + LM_NEW, entry_device(),
+                     frames=frames)
+    prof = device_time(lambda: model.decode_step(
+        params, ids[:, LM_PROMPT:LM_PROMPT + 1], LM_PROMPT, state, cfg,
+        device=entry_device()))
+    del state
+    if prof["device_ms"] is not None:
+        prof["busy_share"] = prof["device_ms"] / statistics.median(step_ms)
+    report = {
+        "model": cfg.name, "leaves": len(flat),
+        "params": sum(t.numel() for t in flat.values()),
+        "bytes": sum(t.numel() * t.element_size() for t in flat.values()),
+        "dtype": cfg.dtype, "layers": cfg.n_layers, "layout_equal_jax": not FAMILIES_SMOKE,
+        "batch": LM_BATCH, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
+        "frames": None if frames is None else list(frames.shape), "init_ms": init_ms,
+        "prefill_ms": statistics.median(prefill_runs), "prefill_ms_runs": prefill_runs,
+        "decode_ms_per_step_p50": statistics.median(step_ms),
+        "decode_ms_per_step_max": max(step_ms),
+        "decode_tokens_per_s": eng.decode_tokens_per_s,
+        "tokens_out": eng.metrics["tokens_out"],
+        "decode_step_profile": prof,
+        "greedy_twice": {"tokens_equal": True, "logits_bit_equal": True},
+        "greedy_tokens_head": ids[0, LM_PROMPT:LM_PROMPT + 8].tolist(),
+    }
+    if cfg.moe is not None:
+        from repro_torch.models.layers import moe_capacity
+        report["moe_capacity"] = {"prefill": moe_capacity(cfg, LM_BATCH * LM_PROMPT),
+                                  "decode": moe_capacity(cfg, LM_BATCH)}
+    if DEV == "cuda":
+        report["device_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        report["device_resident_before_GB"] = resident
+    report["s"] = time.perf_counter() - t0
+    log("[families] serve " + json.dumps(report))
+    return {"report": report, "cfg": cfg, "params": params, "prompts": prompts,
+            "frames": frames, "ids": ids, "logits": logits}
+
+
+class RouteRecorder:
+    """Records every MoE routing decision (``moe_route``'s ids, kept slots
+    and probabilities) while installed."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self._orig = layers.moe_route
+
+        def record(p, xt, cfg):
+            out = self._orig(p, xt, cfg)
+            self.calls.append({k: out[k].detach().cpu() for k in ("ids", "keep", "probs")})
+            return out
+
+        layers.moe_route = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.moe_route = self._orig
+
+
+def route_flips(card: list, cpu: list, k: int) -> dict:
+    """(token, slot) routing choices that differ between two runs of the
+    same calls, with each flipped token's top-k margin on the card."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{len(card)} routing calls on the card, {len(cpu)} on the CPU")
+    flips, kept, margins = 0, 0, []
+    for a, b in zip(card, cpu):
+        diff = a["ids"] != b["ids"]
+        flips += int(diff.sum())
+        kept += int((a["keep"] != b["keep"]).sum())
+        for tok in diff.any(dim=1).nonzero().flatten().tolist():
+            top = torch.sort(a["probs"][tok], descending=True).values
+            margins.append(float(top[k - 1] - top[k]))
+    return {"calls": len(card), "choices": sum(int(a["ids"].numel()) for a in card),
+            "flipped": flips, "keep_flipped": kept, "flipped_margins": margins[:8]}
+
+
+def family_cpu_check(arch: str, seed: int) -> dict:
+    """The f32 model (cut to ``FAMILY_CHECK_LAYERS`` layers at full width)
+    on the card and on the CPU, same params and inputs: the logits of
+    ``forward``, of ``prefill`` and of FAMILY_CHECK_STEPS teacher-forced
+    decode steps, ``loss_fn``'s loss, aux and gradients, held to the CPU
+    tests' tolerances; for MoE every routing choice must agree."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import flatten_params, forward, init_params, loss_fn, model
+
+    if DEV == "cuda" and (torch.backends.cuda.matmul.allow_tf32
+                          or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is on: the router and the f32 checks need full f32 matmuls")
+    cfg = get_config(arch, smoke=FAMILIES_SMOKE).with_(dtype="float32")
+    depth = FAMILY_CHECK_LAYERS[arch]
+    if depth is not None and not FAMILIES_SMOKE:
+        cfg = cfg.with_(n_layers=depth)
+    b, t, n = FAMILY_CHECK_BATCH, FAMILY_CHECK_PROMPT, FAMILY_CHECK_STEPS
+    ids, frames = family_inputs(cfg, b, t + n + 1, seed + 1)
+    batch = {"tokens": ids[:, :t], "labels": ids[:, 1:t + 1], "frames": frames}
+    card = init_params(cfg, torch.Generator(device=DEV).manual_seed(seed), device=DEV)
+    host = model.tree_map(lambda x: x.cpu(), card)
+    names = list(flatten_params(card))
+
+    def run(params, device):
+        with RouteRecorder() as rec:
+            fwd = forward(params, ids[:, :t + n], cfg, frames=frames, device=device)[0]
+            tf, _, _ = teacher_forced(params, cfg, ids[:, :t + n + 1], t, device, frames)
+            leaves = [p.detach().requires_grad_() for p in model.tree_leaves(params)]
+            loss, m = loss_fn(model.tree_unflatten(params, leaves), batch, cfg, device=device)
+            grads = torch.autograd.grad(loss, leaves)
+        return {"forward": fwd, "decode": tf, "loss": loss.detach(), "aux": m["aux"].detach(),
+                "grads": grads, "routes": rec.calls}
+
+    a = run(card, entry_device())
+    del card
+    c = run(host, "cpu")
+    report = {"layers": cfg.n_layers, "batch": b, "prompt_len": t, "steps": n}
+    for what in ("forward", "decode"):
+        err = abs_errors(a[what], c[what])
+        report[what] = {**err, "tol": FAMILY_LOGIT_TOL}
+        if not err["max_abs_err"] <= FAMILY_LOGIT_TOL:
+            raise AssertionError(f"{arch}: f32 {what} logits, card against CPU: {err}")
+    for what in ("loss", "aux"):
+        want = float(c[what])
+        err = abs(float(a[what]) - want)
+        report[what] = {"card": float(a[what]), "cpu": want, "abs_err": err}
+        if not err <= FAMILY_LOSS_REL * abs(want):
+            raise AssertionError(f"{arch}: f32 {what}, card against CPU: {report[what]}")
+    worst = []
+    for name, g, h in zip(names, a["grads"], c["grads"]):
+        scale = float(h.abs().max())
+        of_max = max_err(g, h) / max(scale, 1e-30)
+        worst.append((of_max, name))
+        if not of_max <= FAMILY_GRAD_REL:
+            raise AssertionError(f"{arch}: f32 gradient {name}, card against CPU: {of_max} "
+                                 "of its max |g|")
+    worst.sort(reverse=True)
+    report["grads"] = {"leaves": len(names), "tol_of_max": FAMILY_GRAD_REL,
+                       "worst": [{"leaf": n, "of_max": e} for e, n in worst[:3]]}
+    if cfg.moe is not None:
+        report["routing"] = route_flips(a["routes"], c["routes"], cfg.moe.experts_per_token)
+        if report["routing"]["flipped"] or report["routing"]["keep_flipped"]:
+            raise AssertionError(f"{arch}: routing choices differ between card and CPU: "
+                                 f"{report['routing']}")
+    report["host_params_GB"] = sum(x.numel() * 4 for x in model.tree_leaves(host)) / 1e9
+    return report
+
+
+def family_restore(run: dict) -> dict:
+    """A served model's params saved through D-Rex SC on the ``most_used``
+    node set (policy defaults), the node holding row 0 of the first group
+    failed, ``restore_latest``: every leaf bit-equal, and the restored
+    params serve the same tokens and bit-equal logits."""
+    from repro_torch.checkpoint import CheckpointPolicy, DRexCheckpointer, StorageFabric
+    from repro_torch.models import flatten_params
+    from repro_torch.storage import make_node_set
+
+    state = flatten_params(run["params"])
+    n_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fabric = StorageFabric(make_node_set("most_used"))
+    ck = DRexCheckpointer(fabric, "drex_sc", CheckpointPolicy(), device=DEV)
+    (manifest, save_ms) = host_ms(lambda: ck.save(state, 1))
+    groups = [g for m in manifest["leaves"] for g in m["groups"]]
+    victim = groups[0]["node_ids"][0]
+    fabric.fail_node(victim)
+    (restored, step), restore_ms = host_ms(lambda: ck.restore_latest(state))
+    for name, t in state.items():
+        if not (restored[name].dtype == t.dtype and torch.equal(restored[name], t)):
+            raise AssertionError(f"{run['cfg'].name}: restore after node {victim} failed "
+                                 f"differs at {name}")
+    stats = dict(ck.stats)
+    ck.close()
+    served = serve_restored(run, restored)
+    del restored
+    gb = n_bytes / 1e9
+    return {"model": run["cfg"].name, "leaves": len(state), "bytes": n_bytes,
+            "list_leaves": sum(".rec." in n for n in state), "groups": len(groups),
+            "kp_histogram": dict(collections.Counter(f"({g['k']},{g['p']})" for g in groups)),
+            "failed_node": victim, "save_s": save_ms / 1e3, "save_GBps": gb / (save_ms / 1e3),
+            "place_s": stats["place_s"], "encode_s": stats["encode_s"],
+            "restore_s": restore_ms / 1e3, "restore_GBps": gb / (restore_ms / 1e3),
+            "restored_bit_equal": True, "served_after_restore": served,
+            "device_peak_GB": torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None,
+            "host_peak_rss_GB": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6}
+
+
+def phase_families(seed: int) -> dict:
+    """[families]: the four configs served at full width, the f32 card
+    against CPU checks, RecurrentGemma-9B's and whisper-tiny's params
+    restored bit-exactly after a node loss and served again.  Every launch
+    count is set to 0 just before and read just after."""
+    from repro_torch.core import shapes
+    from repro_torch.kernels import ops, pb_frontier, rs_bitmatmul
+
+    t_phase = time.perf_counter()
+    shapes.reset()
+    ops.reset_launch_stats()
+    rs_bitmatmul.reset_launches()
+    pb_frontier.reset_launches()
+
+    served, kept = {}, {}
+    for arch in FAMILY_ARCHS:
+        run = family_serve(arch, seed)
+        served[arch] = run["report"]
+        if arch in FAMILY_CKPT:
+            kept[arch] = run
+        del run
+    marks = [("serve", time.perf_counter())]
+    checks = {}
+    for arch in FAMILY_ARCHS:
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        checks[arch] = family_cpu_check(arch, seed)
+        log(f"[families] card against CPU, f32, {arch}: " + json.dumps(checks[arch]))
+    marks.append(("card_vs_cpu", time.perf_counter()))
+    restores = {}
+    for arch in FAMILY_CKPT:
+        restores[arch] = family_restore(kept.pop(arch))
+        log("[families] restore " + json.dumps(restores[arch]))
+    marks.append(("restore", time.perf_counter()))
+    launches = rs_bitmatmul.launches
+    per_kind = ops.launch_stats()
+    frontier_launches = pb_frontier.launches
+    issued = sorted(shapes.issued_shapes(ops.CENSUS_KERNEL))
+    frontier_shapes = sorted(shapes.issued_shapes("pb_frontier"))
+    if DEV == "cuda" and (per_kind["encode"] == 0 or per_kind["decode"] == 0
+                          or frontier_launches == 0
+                          or launches != per_kind["encode"] + per_kind["decode"]):
+        raise AssertionError(f"[families] skipped a kernel: {per_kind}, {launches} "
+                             f"rs_bitmatmul and {frontier_launches} pb_frontier launches")
+    report = {
+        "served": {a: {f: r[f] for f in ("prefill_ms", "decode_ms_per_step_p50",
+                                         "decode_tokens_per_s", "device_peak_GB",
+                                         "decode_step_profile") if f in r}
+                   for a, r in served.items()},
+        "launches": {"rs_bitmatmul": launches, "encode": per_kind["encode"],
+                     "decode": per_kind["decode"], "pb_frontier": frontier_launches},
+        "pb_frontier_shapes": [list(x) for x in frontier_shapes],
+        "host_peak_rss_GB": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+    }
+    report["phase_parts_s"] = {name: t - prev for (_, prev), (name, t)
+                               in zip([("start", t_phase)] + marks, marks)}
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("[families] " + json.dumps(report))
+    return {"report": report, "served": served, "checks": checks, "restores": restores,
+            "issued": issued, "launches": launches, "frontier_launches": frontier_launches,
+            "frontier_shapes": frontier_shapes}
+
+
+# -- 11. timing ---------------------------------------------------------------
 
 
 def by_shape(issued_by_path: dict) -> dict:
@@ -2010,8 +2494,8 @@ def by_shape(issued_by_path: dict) -> dict:
 
 
 def phase_timing(issued_by_path: dict, seed: int) -> list[dict]:
-    """rs_bitmatmul against its plain version at every (R, K, B) the main
-    and training paths launched: byte-equal, then timed (median of
+    """rs_bitmatmul against its plain version at every (R, K, B) the main,
+    training and families paths launched: byte-equal, then timed (median of
     CUDA-event runs)."""
     from repro_torch.ec import gf256
     from repro_torch.kernels import ref, rs_bitmatmul
@@ -2162,10 +2646,14 @@ def main() -> int:
     finally:
         torch.use_deterministic_algorithms(False)
     torch.cuda.empty_cache()
+    families = timed("families", phase_families, args.seed)
+    torch.cuda.empty_cache()
     rows = timed("timing", phase_timing,
-                 {"main": main_run["issued"], "train": train_run["issued"]}, args.seed)
+                 {"main": main_run["issued"], "train": train_run["issued"],
+                  "families": families["issued"]}, args.seed)
     frows = timed("frontier_timing", phase_frontier_timing,
-                  {"main": main_run["frontier_shapes"], "train": train_run["frontier_shapes"]})
+                  {"main": main_run["frontier_shapes"], "train": train_run["frontier_shapes"],
+                   "families": families["frontier_shapes"]})
     # The headline shape is the main path's save's widest encode wave.
     save = {(r8 // 8, k8 // 8, n * bb) for r8, k8, n, bb, _ in main_run["save_shapes"]}
     head = max((x for x in rows if (x["R"], x["K"], x["B"]) in save and "main" in x["paths"]),
@@ -2184,6 +2672,7 @@ def main() -> int:
                 # the LM path: its checkpoint is [main]; serving codes no bytes
                 "lm_path": main_run["launches"],
                 "train": train_run["launches"],
+                "families": families["launches"],
             },
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "matches_plain": True,
@@ -2207,6 +2696,7 @@ def main() -> int:
                 "checkpoint_main": main_run["frontier_launches"],
                 "lm_path": main_run["frontier_launches"],
                 "train": train_run["frontier_launches"],
+                "families": families["frontier_launches"],
                 "sim_at_scale": sum(sim[f"sim_at_scale/{s}"]["pb_frontier_launches"]
                                     for s in (0, 1)),
                 "serve_lane": sum(r["pb_frontier_launches"] for r in serve.values()
@@ -2214,8 +2704,10 @@ def main() -> int:
                 "serve_at_scale": sum(r["pb_frontier_launches"] for r in serve.values()
                                       if r["run"] == "serve_at_scale"),
             },
-            "variants_by_path": {**path_shapes["variants_by_path"], "train": sorted({
-                frontier_variant(B * S, W) for B, S, _, _, W, _ in train_run["frontier_shapes"]})},
+            "variants_by_path": {**path_shapes["variants_by_path"], **{
+                path: sorted({frontier_variant(B * S, W) for B, S, _, _, W, _ in run_shapes})
+                for path, run_shapes in (("train", train_run["frontier_shapes"]),
+                                         ("families", families["frontier_shapes"]))}},
             "max_abs_err": max(x["max_abs_err"] for x in frows),
             "matches_plain": True,
             "ms": fhead["ms"],
@@ -2234,6 +2726,9 @@ def main() -> int:
     log("[summary] " + json.dumps({"cuts": CUTS, "phase_s": phase_s, "lm": {
         arch: {f: r[f] for f in lm_fields if f in r} for arch, r in lm_reports.items()},
         "train": {f: train_run["report"][f] for f in train_fields},
+        "families": {**families["report"]["served"], "restore": {
+            a: {f: r[f] for f in ("save_GBps", "restore_GBps", "groups")}
+            for a, r in families["restores"].items()}},
         "scale": {
         k: {f: v[f] for f in ("batch_disagree", "committed_disagree",
                               "batch_ms_per_decision_card",

@@ -1,7 +1,6 @@
-"""Model zoo of the port: the dense GQA transformers
-(``block_pattern="attn"``) and RWKV6, for serving and training
-(``loss_fn``).  Griffin, MoE and the encoder-decoder wait for later
-slices (``ROADMAP.md``)."""
+"""Model zoo of the port: the dense and MoE GQA transformers, whisper's
+encoder-decoder (``block_pattern="attn"``), RWKV6 and Griffin, for
+serving and training (``loss_fn``), on one device."""
 
 from .config import EncoderConfig, ModelConfig, MoEConfig
 from .interop import flatten_params, params_from_numpy, unflatten_params

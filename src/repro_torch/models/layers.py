@@ -1,9 +1,10 @@
 """Core neural layers of the port: norms, RoPE, GQA attention, MLP variants.
 
-The port of ``repro.models.layers`` for the serving path: the dense
-attention and MLP of ``block_pattern="attn"`` models.  Params are nested
-dicts of tensors; ``init_*`` builds them, stacked along leading ``stack``
-dims (the layer axis), from an explicit ``torch.Generator``.
+The port of ``repro.models.layers``: the dense and local-window GQA
+attention (self, ring-buffer decode and cross), the MLP variants and the
+capacity-bounded top-k MoE.  Params are nested dicts of tensors;
+``init_*`` builds them, stacked along leading ``stack`` dims (the layer
+axis), from an explicit ``torch.Generator``.
 
 Every apply function mirrors the JAX expression op for op, in the same
 dtypes, so the rounding points are the reference's: the compute dtype
@@ -13,8 +14,10 @@ is plain tensor ops, not ``scaled_dot_product_attention``: the reference
 rounds the scores to the compute dtype before the f32 softmax and the
 probabilities to it before the PV product, which a fused kernel does not.
 
-Waiting for a later slice (``ROADMAP.md``, Queue 1): ``blockwise_sdpa``,
-the cross-attention helpers, ring (griffin) decode and MoE.
+Waiting for a later slice: ``blockwise_sdpa`` (``ROADMAP.md`` Queue 2
+a4) and the MoE's ``shard_map`` dispatch, which only a mesh reaches
+(Queue 1 item 4; the port has no mesh, so ``moe_apply`` always takes the
+reference's one-device scatter path).
 """
 
 from __future__ import annotations
@@ -27,13 +30,12 @@ import torch
 
 from .config import ModelConfig
 
-#: what a config that needs a family not ported yet is told.
-WAITS = ("not ported yet: {what} waits for ROADMAP.md Queue 1, LM stack "
-         "item 2 (the other families)")
+#: what a caller that reaches code not ported yet is told.
+WAITS = "not ported yet: {what} waits for ROADMAP.md {item}"
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(WAITS.format(what=what))
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(WAITS.format(what=what, item=item))
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +107,8 @@ def rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def init_attention(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
+def init_attention(cfg: ModelConfig, generator, cross: bool = False, *, device,
+                   stack=()) -> dict:
     e, hd = cfg.d_model, cfg.dhead
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     kw = dict(device=device, stack=stack)
@@ -115,7 +118,7 @@ def init_attention(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
         "wv": dense_init(generator, (e, nkv, hd), cfg.dt, **kw),
         "wo": dense_init(generator, (nh, hd, e), cfg.dt, in_axis=(0, 1), **kw),
     }
-    if cfg.use_qk_norm:
+    if cfg.use_qk_norm and not cross:
         p["q_norm"] = ones((hd,), cfg.dt, **kw)
         p["k_norm"] = ones((hd,), cfg.dt, **kw)
     return p
@@ -133,17 +136,20 @@ def _heads_out(x, w):
     return x.reshape(*x.shape[:-2], h * d) @ w.reshape(h * d, e)
 
 
-def _qkv(p, x, cfg: ModelConfig, positions):
-    """Self-attention's q, k, v (the reference's ``_qkv`` with
-    ``x_kv = x`` and RoPE on; its cross-attention form waits)."""
+def _qkv(p, x, cfg: ModelConfig, positions, x_kv=None, kv_positions=None,
+         use_rope: bool = True):
+    """q from ``x``, k and v from ``x_kv`` (default ``x``: self-attention),
+    RoPE'd at ``positions`` and ``kv_positions`` (default ``positions``)."""
+    x_kv = x if x_kv is None else x_kv
     q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
+    k = _proj_heads(x_kv, p["wk"])
+    v = _proj_heads(x_kv, p["wv"])
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions if kv_positions is None else kv_positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -188,7 +194,7 @@ def self_attention(q, k, v, cfg: ModelConfig, window: int = 0, q_offset: int = 0
         and s % min(cfg.attn_block_kv, s) == 0
         and t > 1
     ):
-        raise not_ported("attn_impl='blockwise' (blockwise_sdpa)")
+        raise not_ported("attn_impl='blockwise' (blockwise_sdpa)", "Queue 2 a4")
     return _sdpa(q, k, v, causal_mask(t, s, window, offset=q_offset, device=q.device), cfg)
 
 
@@ -203,26 +209,46 @@ def attention_decode(p, x, cache, pos: int, cfg: ModelConfig, window: int = 0,
                      ring: bool = False):
     """One-token decode against a pre-allocated KV cache.
 
-    x: (B,1,E); cache: {"k","v"}: (B,S,Hkv,D) holding absolute positions
-    0..S-1; ``pos`` is the new token's position (RoPE uses it) and its
-    write index, clamped to [0, S-1] as the reference's
+    x: (B,1,E); cache: {"k","v"}: (B,S,Hkv,D); ``pos`` is the new token's
+    position (RoPE uses it).  The cache is updated in place.
+
+    ``ring=False``: the cache holds absolute positions 0..S-1 and ``pos``
+    is the write index, clamped to [0, S-1] as the reference's
     ``dynamic_update_slice`` clamps it: at ``pos >= S`` the token
-    overwrites slot S-1 and every slot is valid.  The cache is updated in
-    place.  Returns (out (B,1,E), cache)."""
-    if ring:
-        raise not_ported("ring-buffer decode (griffin local attention)")
+    overwrites slot S-1 and every slot is valid.
+
+    ``ring=True`` (griffin's local attention): the cache is a rolling
+    window of the last S positions, the write index is ``pos % S``, and
+    every slot written so far is valid (slot j once ``j <= pos``, all of
+    them once ``pos >= S``).
+
+    Returns (out (B,1,E), cache)."""
     s = cache["k"].shape[1]
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     q, k1, v1 = _qkv(p, x, cfg, positions)
-    widx = min(max(pos, 0), s - 1)
+    widx = pos % s if ring else min(max(pos, 0), s - 1)
     cache["k"][:, widx] = k1[:, 0].to(cache["k"].dtype)
     cache["v"][:, widx] = v1[:, 0].to(cache["v"].dtype)
     kj = torch.arange(s, device=x.device)[None, :]
     valid = kj <= pos
-    if window > 0:
+    if ring:
+        valid = valid | (pos >= s)
+    elif window > 0:
         valid = valid & (kj > pos - window)
     out = _sdpa(q, cache["k"], cache["v"], valid, cfg)
     return _heads_out(out, p["wo"]), cache
+
+
+def attention_cross(p, x, enc_kv, cfg: ModelConfig):
+    """Cross-attention against precomputed encoder K/V (the whisper
+    decoder): no RoPE, no mask."""
+    q = _proj_heads(x, p["wq"])
+    out = _sdpa(q, enc_kv["k"], enc_kv["v"], None, cfg)
+    return _heads_out(out, p["wo"])
+
+
+def encode_cross_kv(p, enc_out, cfg: ModelConfig) -> dict:
+    return {"k": _proj_heads(enc_out, p["wk"]), "v": _proj_heads(enc_out, p["wv"])}
 
 
 # ---------------------------------------------------------------------------
@@ -274,3 +300,108 @@ def mlp_apply(p, x, cfg: ModelConfig):
     g = act(x @ p["wg"])
     h = g * (x @ p["wi"])
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k, capacity-bounded scatter dispatch)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
+    m = cfg.moe
+    e, f = cfg.d_model, m.expert_d_ff
+    ep = m.n_experts_padded   # GShard-style padding for even EP sharding
+    kw = dict(device=device, stack=stack)
+    p = {
+        "router": dense_init(generator, (e, ep), torch.float32, **kw),
+        "wg": dense_init(generator, (ep, e, f), cfg.dt, in_axis=1, **kw),
+        "wi": dense_init(generator, (ep, e, f), cfg.dt, in_axis=1, **kw),
+        "wo": dense_init(generator, (ep, f, e), cfg.dt, in_axis=1, **kw),
+    }
+    if m.n_shared_experts:
+        p["shared"] = init_mlp(cfg, generator, d_ff=m.n_shared_experts * f, **kw)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, s: int) -> int:
+    """Routed slots each expert takes from ``s`` tokens: ``ceil(s*k/E *
+    capacity_factor)`` over the unpadded expert count E, in Python floats.
+    In decode s = B, so at B = 4 both MoE configs keep one slot an expert
+    and drop the rest, as the reference does."""
+    m = cfg.moe
+    return int(math.ceil(s * m.experts_per_token / m.n_experts * m.capacity_factor))
+
+
+def moe_route(p, xt, cfg: ModelConfig) -> dict:
+    """The router of :func:`moe_apply` over tokens ``xt`` (S, D):
+    ``probs`` (S, Ep) f32, the top-k ``ids`` and ``weights`` (S, k), each
+    routed slot's ``slot`` in its expert's queue and whether it is kept
+    (``keep``, both (S*k,), token-major), ``cap`` and the aux loss.
+
+    The reference's expressions: the router product in f32 (TF32 must be
+    off on the card, or routing choices flip), padded experts masked to
+    -1e30 before the softmax, ``lax.top_k``'s order (on ties the lower
+    expert first: a stable descending sort, which ``torch.topk`` does not
+    promise), slots from an integer cumsum."""
+    m = cfg.moe
+    ep, k = m.n_experts_padded, m.experts_per_token
+    logits = xt.float() @ p["router"].float()                  # (S, Ep)
+    if ep != m.n_experts:   # padded experts never win routing
+        pad = torch.arange(ep, device=xt.device) >= m.n_experts
+        logits = torch.where(pad[None, :], -1e30, logits)
+    z = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = z / z.sum(dim=-1, keepdim=True)
+    top_w, top_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_ids = top_w[:, :k], top_ids[:, :k]              # (S, k)
+    if m.norm_topk:
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+
+    # load-balancing auxiliary loss (Switch/GShard form)
+    density = torch.nn.functional.one_hot(top_ids[:, 0], ep).float().mean(dim=0)
+    aux = m.router_aux_coef * m.n_experts * torch.sum(density * probs.mean(dim=0))
+
+    cap = moe_capacity(cfg, xt.shape[0])
+    flat_ids = top_ids.reshape(-1)
+    # position of each (token, slot) within its expert queue
+    one_hot = torch.nn.functional.one_hot(flat_ids, ep)
+    slot = torch.cumsum(one_hot, dim=0).gather(1, flat_ids[:, None])[:, 0] - 1
+    return {"probs": probs, "ids": top_ids, "weights": top_w, "slot": slot,
+            "keep": slot < cap, "cap": cap, "aux": aux}
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """Top-k MoE with capacity-bounded scatter dispatch (GShard
+    semantics): each expert takes at most :func:`moe_capacity` of the S =
+    B*T tokens' routed slots, in token-major order, and drops the rest.
+    Returns (out, aux_loss f32).
+
+    The reference's one-device branch, op for op (routing in
+    :func:`moe_route`).  Every expert runs its SwiGLU over all ``cap``
+    slots, empty ones included.  Kept tokens have unique (expert, slot)
+    pairs, so the dispatch is a plain index write; dropped ones are
+    written to a spare slot ``cap`` that is cut off, which keeps it free
+    of host syncs and of nondeterministic accumulation."""
+    ep, k = cfg.moe.n_experts_padded, cfg.moe.experts_per_token
+    b, t, e = x.shape
+    s = b * t
+    xt = x.reshape(s, e)
+    r = moe_route(p, xt, cfg)
+    cap, keep, slot = r["cap"], r["keep"], r["slot"]
+    flat_ids, flat_w = r["ids"].reshape(-1), r["weights"].reshape(-1)
+    slot_c = torch.where(keep, slot, 0)
+
+    xe = xt.repeat_interleave(k, dim=0)                        # (S*k, D)
+    spare = torch.zeros((ep, cap + 1, e), dtype=x.dtype, device=x.device)
+    dispatched = spare.index_put((flat_ids, torch.where(keep, slot, cap)), xe)[:, :cap]
+
+    g = silu(torch.bmm(dispatched, p["wg"]))
+    h = g * torch.bmm(dispatched, p["wi"])
+    out_e = torch.bmm(h, p["wo"])                              # (Ep, cap, D)
+
+    gathered = out_e[flat_ids, slot_c]                         # (S*k, D)
+    gathered = torch.where(keep[:, None], gathered, 0)
+    combined = (gathered * flat_w[:, None].to(gathered.dtype)).reshape(s, k, e).sum(dim=1)
+    out = combined.reshape(b, t, e)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], x, cfg)
+    return out, r["aux"]

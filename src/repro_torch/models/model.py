@@ -1,12 +1,16 @@
 """Model assembly of the port: init / forward / loss / prefill / decode.
 
-The port of ``repro.models.model`` for two block patterns: ``"attn"``
-(dense GQA transformers: qwen3, yi, nemotron, chameleon) and
-``"rwkv6"``.  Params are the reference's tree — a nested dict whose layer
+The port of ``repro.models.model`` for all ten architectures: the
+``"attn"`` pattern (dense GQA transformers: qwen3, yi, nemotron,
+chameleon; the MoE transformers qwen2-moe and qwen3-moe; whisper's
+encoder-decoder), ``"rwkv6"`` and ``"griffin"`` (RecurrentGemma's (R, R,
+A) groups and a recurrent tail).  Params are the reference's tree — nested
+dicts, and in griffin's groups a list (``groups.rec``), whose layer
 leaves are stacked ``(n_layers, ...)`` tensors — and a layer is a view of
-each; the layer loop is a Python loop where the reference scans.  Logits
-are computed in the compute dtype and only then cast to f32, as the
-reference's heads do.
+each; the layer loop is a Python loop where the reference scans.  The
+tree helpers visit dict keys sorted and lists in index order, which is
+``jax.tree.flatten``'s order.  Logits are computed in the compute dtype
+and only then cast to f32, as the reference's heads do.
 
 Training: ``loss_fn`` is differentiated by ``torch.autograd``.
 ``forward`` splits each stacked leaf once (``unbind``, whose backward is
@@ -21,8 +25,9 @@ without a card), ``"cpu"`` runs on the CPU.  A param or state tensor on
 another device than the one asked for raises; nothing is moved behind
 the caller's back but the host token ids.
 
-Griffin, MoE and encoder-decoder configs raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports them.
+An MoE block's aux loss is summed over layers into ``forward``'s second
+output and ``loss_fn``'s loss.  ``attn_impl="blockwise"`` raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
@@ -39,18 +44,28 @@ from .config import ModelConfig
 from .layers import (
     _heads_out,
     _qkv,
+    _sdpa,
+    attention_cross,
     attention_decode,
-    attention_full,
     dense_init,
+    encode_cross_kv,
     init_attention,
     init_mlp,
+    init_moe,
     mlp_apply,
-    not_ported,
+    moe_apply,
     ones,
     rms_norm,
     self_attention,
 )
-from .recurrent import init_rwkv6_cmix, init_rwkv6_tmix, rwkv6_cmix, rwkv6_tmix
+from .recurrent import (
+    init_rglru_block,
+    init_rwkv6_cmix,
+    init_rwkv6_tmix,
+    rglru_block,
+    rwkv6_cmix,
+    rwkv6_tmix,
+)
 
 
 def rms_norm_cfg(x, scale, cfg):
@@ -58,30 +73,30 @@ def rms_norm_cfg(x, scale, cfg):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this slice does not port."""
-    if cfg.block_pattern == "griffin":
-        raise not_ported(f"{cfg.name}: block_pattern='griffin' (RG-LRU, ring attention)")
-    if cfg.moe is not None:
-        raise not_ported(f"{cfg.name}: MoE")
-    if cfg.is_encdec:
-        raise not_ported(f"{cfg.name}: the encoder-decoder (whisper)")
-    if cfg.block_pattern not in ("attn", "rwkv6"):
+    """Raise ``ValueError`` for a block pattern the reference does not know."""
+    if cfg.block_pattern not in ("attn", "rwkv6", "griffin"):
         raise ValueError(f"unknown block_pattern {cfg.block_pattern!r}")
 
 
 def tree_map(fn, tree):
     if isinstance(tree, Mapping):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def tree_leaves(tree) -> list:
+    """The leaves in ``jax.tree.flatten``'s order: dict keys sorted, list
+    items in index order."""
     if isinstance(tree, Mapping):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
-def tree_unflatten(like, leaves) -> dict:
+def tree_unflatten(like, leaves):
     """The tree of ``like``'s structure holding ``leaves``, given in
     :func:`tree_leaves` order."""
     it = iter(leaves)
@@ -89,16 +104,19 @@ def tree_unflatten(like, leaves) -> dict:
     def build(node):
         if isinstance(node, Mapping):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
         return next(it)
 
     return build(like)
 
 
-def _layers(tree, n: int) -> list:
+def _layers(tree) -> list:
     """Every layer of a stacked tree, views of each leaf split once:
     ``unbind``'s backward is one ``stack`` a leaf, where ``n`` indexings
     would add ``n`` full-size gradients."""
     split = tree_map(lambda x: x.unbind(0), tree)
+    n = len(tree_leaves(split)[0])
     return [tree_map(lambda parts: parts[i], split) for i in range(n)]
 
 
@@ -107,6 +125,8 @@ def _stack(trees: list):
     first = trees[0]
     if isinstance(first, Mapping):
         return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
     return torch.stack(trees)
 
 
@@ -131,9 +151,57 @@ def _tokens(tokens, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=dev).long()
 
 
+def _frames(frames, cfg: ModelConfig, dev: torch.device) -> torch.Tensor:
+    """An encoder-decoder's frame embeddings (B, n_frames, d_model): host
+    arrays are moved to ``dev``; a tensor must be there already."""
+    if frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass frames "
+                         "(B, n_frames, d_model)")
+    if isinstance(frames, torch.Tensor):
+        _device_for(cfg, dev, frames)
+        return frames
+    return torch.as_tensor(frames, device=dev)
+
+
+def _griffin_depths(cfg: ModelConfig) -> tuple[int, int]:
+    """(number of (R, R, A) groups, number of trailing recurrent layers)."""
+    n_groups = cfg.n_layers // 3
+    return n_groups, cfg.n_layers - 3 * n_groups
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+
+def _init_attn_block(cfg: ModelConfig, generator, kw) -> dict:
+    """An attention block: self-attention, then (in a decoder) cross-
+    attention, then an MLP or an MoE."""
+    d = cfg.d_model
+    p = {
+        "norm1": ones((d,), cfg.dt, **kw),
+        "attn": init_attention(cfg, generator, **kw),
+        "norm2": ones((d,), cfg.dt, **kw),
+    }
+    if cfg.moe is not None:
+        p["moe"] = init_moe(cfg, generator, **kw)
+    else:
+        p["mlp"] = init_mlp(cfg, generator, **kw)
+    if cfg.is_encdec:
+        p["norm_x"] = ones((d,), cfg.dt, **kw)
+        p["xattn"] = init_attention(cfg, generator, cross=True, **kw)
+    return p
+
+
+def _init_rec_block(cfg: ModelConfig, generator, kw) -> dict:
+    """A griffin recurrent block: the RG-LRU, then an MLP."""
+    d = cfg.d_model
+    return {
+        "norm1": ones((d,), cfg.dt, **kw),
+        "rg": init_rglru_block(cfg, generator, **kw),
+        "norm2": ones((d,), cfg.dt, **kw),
+        "mlp": init_mlp(cfg, generator, **kw),
+    }
 
 
 def _init_layers(cfg: ModelConfig, generator, device) -> dict:
@@ -147,12 +215,7 @@ def _init_layers(cfg: ModelConfig, generator, device) -> dict:
             "norm2": ones((d,), cfg.dt, **kw),
             "cmix": init_rwkv6_cmix(cfg, generator, **kw),
         }
-    return {
-        "norm1": ones((d,), cfg.dt, **kw),
-        "attn": init_attention(cfg, generator, **kw),
-        "norm2": ones((d,), cfg.dt, **kw),
-        "mlp": init_mlp(cfg, generator, **kw),
-    }
+    return _init_attn_block(cfg, generator, kw)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
@@ -171,12 +234,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
                                        cfg.dt, device=dev)
-    params["layers"] = _init_layers(cfg, generator, dev)
+    if cfg.block_pattern == "griffin":
+        n_groups, n_tail = _griffin_depths(cfg)
+        kw = dict(device=dev, stack=(n_groups,))
+        params["groups"] = {"rec": [_init_rec_block(cfg, generator, kw) for _ in range(2)],
+                            "attn": _init_attn_block(cfg, generator, kw)}
+        if n_tail:
+            params["tail"] = _init_rec_block(cfg, generator, dict(device=dev, stack=(n_tail,)))
+    else:
+        params["layers"] = _init_layers(cfg, generator, dev)
+    if cfg.is_encdec:
+        enc_cfg = cfg.with_(use_qk_norm=False, moe=None, encoder=None)
+        params["enc_layers"] = _init_attn_block(
+            enc_cfg, generator, dict(device=dev, stack=(cfg.encoder.n_layers,)))
+        params["enc_norm"] = ones((cfg.d_model,), cfg.dt, device=dev)
     return params
 
 
 # ---------------------------------------------------------------------------
-# forward / prefill / decode
+# blocks
 # ---------------------------------------------------------------------------
 
 
@@ -195,8 +271,49 @@ def _rwkv_block(cfg, lp, h, state=None):
     return h + o, {"tmix": tm, "cmix": cm}
 
 
+def _rec_block(cfg, lp, h, state=None):
+    """A griffin recurrent block -> (h, {"h", "conv"})."""
+    o, state = rglru_block(lp["rg"], rms_norm_cfg(h, lp["norm1"], cfg), cfg, state)
+    h = h + o
+    return h + mlp_apply(lp["mlp"], rms_norm_cfg(h, lp["norm2"], cfg), cfg), state
+
+
+def _ffn(cfg, lp, h):
+    """An attention block's MLP or MoE -> (h, aux loss, or None without MoE)."""
+    h2 = rms_norm_cfg(h, lp["norm2"], cfg)
+    if "moe" in lp:
+        mo, aux = moe_apply(lp["moe"], h2, cfg)
+        return h + mo, aux
+    return h + mlp_apply(lp["mlp"], h2, cfg), None
+
+
+def _attn_block(cfg, lp, h, positions, enc_out=None):
+    """An attention block over the whole sequence -> (h, aux or None,
+    its self-attention K/V, its cross-attention K/V or None)."""
+    hin = rms_norm_cfg(h, lp["norm1"], cfg)
+    q, k, v = _qkv(lp["attn"], hin, cfg, positions)
+    att = self_attention(q, k, v, cfg, window=cfg.attn_window)
+    h = h + _heads_out(att, lp["attn"]["wo"])
+    xkv = None
+    if enc_out is not None:
+        xkv = encode_cross_kv(lp["xattn"], enc_out, cfg)
+        h = h + attention_cross(lp["xattn"], rms_norm_cfg(h, lp["norm_x"], cfg), xkv, cfg)
+    h, aux = _ffn(cfg, lp, h)
+    return h, aux, {"k": k, "v": v}, xkv
+
+
 def _positions(b: int, t: int, dev) -> torch.Tensor:
     return torch.arange(t, dtype=torch.int32, device=dev)[None, :].expand(b, t)
+
+
+def _ring_layout(kv: dict, t: int, win: int) -> dict:
+    """Prefill's K/V as a ring of ``win`` slots: slot j holds the position
+    p with p % win == j, so decode (write index pos % win) continues
+    seamlessly; a prompt shorter than the window sits at slots 0..t-1."""
+    if t >= win:
+        return {n: torch.roll(a[:, -win:], t % win, dims=1) for n, a in kv.items()}
+    return {n: torch.cat([a, a.new_zeros((a.shape[0], win - t, *a.shape[2:]))], dim=1)
+            for n, a in kv.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -246,34 +363,75 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return wrapped
 
 
+# ---------------------------------------------------------------------------
+# forward / loss
+# ---------------------------------------------------------------------------
+
+
+def _encode(params, frames, cfg: ModelConfig):
+    """The whisper encoder over given frame embeddings (the reference's
+    stub frontend): bidirectional self-attention with RoPE over frame
+    positions, no mask."""
+    x = frames.to(cfg.dt)
+    b, s, _ = x.shape
+    positions = _positions(b, s, x.device)
+
+    def block(h, lp):
+        hin = rms_norm_cfg(h, lp["norm1"], cfg)
+        q, k, v = _qkv(lp["attn"], hin, cfg, positions)
+        h = h + _heads_out(_sdpa(q, k, v, None, cfg), lp["attn"]["wo"])
+        return h + mlp_apply(lp["mlp"], rms_norm_cfg(h, lp["norm2"], cfg), cfg)
+
+    block = _maybe_remat(block, cfg)
+    for lp in _layers(params["enc_layers"]):
+        x = block(x, lp)
+    return rms_norm_cfg(x, params["enc_norm"], cfg)
+
+
 def forward(params, tokens, cfg: ModelConfig, frames=None, device=None):
-    """Full-sequence causal forward -> (logits (B, T, V) f32, aux loss)."""
-    if frames is not None:
-        raise not_ported("frames (the encoder-decoder)")
+    """Full-sequence causal forward -> (logits (B, T, V) f32, aux loss f32:
+    the MoE blocks' summed, else 0).  An encoder-decoder needs ``frames``
+    (B, n_frames, d_model); other models ignore them."""
     dev = _device_for(cfg, device, params)
     tokens = _tokens(tokens, dev)
     b, t = tokens.shape
     x = params["embed"][tokens].to(cfg.dt)
     positions = _positions(b, t, dev)
+    enc_out = _encode(params, _frames(frames, cfg, dev), cfg) if cfg.is_encdec else None
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
 
-    def block(h, lp):
-        if cfg.block_pattern == "rwkv6":
-            return _rwkv_block(cfg, lp, h)[0]
-        h = h + attention_full(lp["attn"], rms_norm_cfg(h, lp["norm1"], cfg), cfg,
-                               positions, window=cfg.attn_window)
-        return h + mlp_apply(lp["mlp"], rms_norm_cfg(h, lp["norm2"], cfg), cfg)
+    if cfg.block_pattern == "griffin":
+        def group(h, gp):
+            for rp in gp["rec"]:
+                h = _rec_block(cfg, rp, h)[0]
+            return _attn_block(cfg, gp["attn"], h, positions)[0]
 
-    block = _maybe_remat(block, cfg)
-    for lp in _layers(params["layers"], cfg.n_layers):
-        x = block(x, lp)
+        group = _maybe_remat(group, cfg)
+        for gp in _layers(params["groups"]):
+            x = group(x, gp)
+        if "tail" in params:
+            tail = _maybe_remat(lambda h, rp: _rec_block(cfg, rp, h)[0], cfg)
+            for rp in _layers(params["tail"]):
+                x = tail(x, rp)
+    elif cfg.block_pattern == "rwkv6":
+        block = _maybe_remat(lambda h, lp: _rwkv_block(cfg, lp, h)[0], cfg)
+        for lp in _layers(params["layers"]):
+            x = block(x, lp)
+    else:
+        block = _maybe_remat(lambda h, lp: _attn_block(cfg, lp, h, positions, enc_out)[:2],
+                             cfg)
+        for lp in _layers(params["layers"]):
+            x, a = block(x, lp)
+            if a is not None:
+                aux = aux + a
     if cfg.bwd_bf16:
         x = _grad_to_bf16(x)
-    return _head(params, x, cfg), torch.zeros((), dtype=torch.float32, device=dev)
+    return _head(params, x, cfg), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig, device=None):
-    """Cross-entropy LM loss. batch: {"tokens", "labels"}.  Returns
-    ``(nll + aux, {"nll", "aux"})``, f32 scalars."""
+    """Cross-entropy LM loss. batch: {"tokens", "labels"[, "frames"]}.
+    Returns ``(nll + aux, {"nll", "aux"})``, f32 scalars."""
     logits, aux = forward(params, batch["tokens"], cfg, batch.get("frames"), device=device)
     labels = _tokens(batch["labels"], logits.device)
     logz = torch.logsumexp(logits, dim=-1)
@@ -282,53 +440,105 @@ def loss_fn(params, batch, cfg: ModelConfig, device=None):
     return nll + aux, {"nll": nll, "aux": aux}
 
 
+# ---------------------------------------------------------------------------
+# serving: state init / decode / prefill
+# ---------------------------------------------------------------------------
+
+
 def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dict:
-    """Zero-initialized decode state, the reference's tree."""
+    """Zero-initialized decode state, the reference's tree.  Griffin's
+    local attention keeps a ring of ``min(attn_window or cache_len,
+    cache_len)`` slots; an encoder-decoder also holds its cross-attention
+    K/V over ``encoder.n_frames`` frames."""
     check_supported(cfg)
     dev = resolve_device(device)
     n, d = cfg.n_layers, cfg.d_model
+
+    def zeros(shape, dtype=cfg.dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def kv(layers, length):
+        shape = (layers, batch, length, cfg.n_kv_heads, cfg.dhead)
+        return {"k": zeros(shape), "v": zeros(shape)}
+
+    def rec(layers):
+        return {"h": zeros((layers, batch, d), torch.float32),
+                "conv": zeros((layers, batch, cfg.conv1d_width - 1, d))}
+
     if cfg.block_pattern == "rwkv6":
         hs = cfg.rwkv_head_size
         return {
             "layers": {
-                "tmix": {
-                    "s": torch.zeros((n, batch, d // hs, hs, hs), dtype=torch.float32,
-                                     device=dev),
-                    "x_prev": torch.zeros((n, batch, d), dtype=cfg.dt, device=dev),
-                },
-                "cmix": {"x_prev": torch.zeros((n, batch, d), dtype=cfg.dt, device=dev)},
+                "tmix": {"s": zeros((n, batch, d // hs, hs, hs), torch.float32),
+                         "x_prev": zeros((n, batch, d))},
+                "cmix": {"x_prev": zeros((n, batch, d))},
             }
         }
-    kv = (n, batch, cache_len, cfg.n_kv_heads, cfg.dhead)
-    return {"layers": {"k": torch.zeros(kv, dtype=cfg.dt, device=dev),
-                       "v": torch.zeros(kv, dtype=cfg.dt, device=dev)}}
+    if cfg.block_pattern == "griffin":
+        n_groups, n_tail = _griffin_depths(cfg)
+        win = min(cfg.attn_window or cache_len, cache_len)
+        state = {"groups": {"rec": [rec(n_groups) for _ in range(2)],
+                            "attn": kv(n_groups, win)}}
+        if n_tail:
+            state["tail"] = rec(n_tail)
+        return state
+    state = {"layers": kv(n, cache_len)}
+    if cfg.is_encdec:
+        state["cross_kv"] = kv(n, cfg.encoder.n_frames)
+    return state
 
 
 def decode_step(params, token, pos: int, state, cfg: ModelConfig, device=None):
     """One-token decode.  token: (B, 1) ids; pos: the number of tokens
-    already in the state (also the KV cache's write index).
+    already in the state (also the KV cache's write index; griffin's ring
+    writes at ``pos % window``).
 
     Returns (logits (B, V) f32, new_state); ``state`` is left unchanged."""
     dev = _device_for(cfg, device, params, state)
     x = params["embed"][_tokens(token, dev)].to(cfg.dt)
     pos = int(pos)
-    ls = state["layers"]
     if cfg.block_pattern == "rwkv6":
         new = []
-        for lp, st in zip(_layers(params["layers"], cfg.n_layers), _layers(ls, cfg.n_layers)):
+        for lp, st in zip(_layers(params["layers"]), _layers(state["layers"])):
             x, st = _rwkv_block(cfg, lp, x, st)
             new.append(st)
         new_state = {"layers": _stack(new)}
+    elif cfg.block_pattern == "griffin":
+        ring = {n: a.clone() for n, a in state["groups"]["attn"].items()}
+        rec = []
+        # the per-group views write through to ``ring``
+        for gp, sts, cache in zip(_layers(params["groups"]),
+                                  _layers(state["groups"]["rec"]), _layers(ring)):
+            new = []
+            for rp, st in zip(gp["rec"], sts):
+                x, st = _rec_block(cfg, rp, x, st)
+                new.append(st)
+            rec.append(new)
+            ap = gp["attn"]
+            o, _ = attention_decode(ap["attn"], rms_norm_cfg(x, ap["norm1"], cfg), cache,
+                                    pos, cfg, ring=True)
+            x = _ffn(cfg, ap, x + o)[0]
+        new_state = {"groups": {"rec": _stack(rec), "attn": ring}}
+        if "tail" in params:
+            tail = []
+            for rp, st in zip(_layers(params["tail"]), _layers(state["tail"])):
+                x, st = _rec_block(cfg, rp, x, st)
+                tail.append(st)
+            new_state["tail"] = _stack(tail)
     else:
-        kv = {"k": ls["k"].clone(), "v": ls["v"].clone()}
+        kv = {n: a.clone() for n, a in state["layers"].items()}
+        layers = _layers(params["layers"])
+        cross = _layers(state["cross_kv"]) if cfg.is_encdec else [None] * len(layers)
         # the per-layer views write through to ``kv``
-        for lp, cache in zip(_layers(params["layers"], cfg.n_layers),
-                             _layers(kv, cfg.n_layers)):
+        for lp, cache, xkv in zip(layers, _layers(kv), cross):
             o, _ = attention_decode(lp["attn"], rms_norm_cfg(x, lp["norm1"], cfg),
                                     cache, pos, cfg, window=cfg.attn_window)
             x = x + o
-            x = x + mlp_apply(lp["mlp"], rms_norm_cfg(x, lp["norm2"], cfg), cfg)
-        new_state = {"layers": kv}
+            if xkv is not None:
+                x = x + attention_cross(lp["xattn"], rms_norm_cfg(x, lp["norm_x"], cfg),
+                                        xkv, cfg)
+            x = _ffn(cfg, lp, x)[0]
+        new_state = {**state, "layers": kv}
     return _head(params, x, cfg)[:, 0, :], new_state
 
 
@@ -337,28 +547,50 @@ def prefill(params, tokens, cfg: ModelConfig, frames=None, device=None):
 
     Returns (last-token logits (B, V) f32, state).  For attention models
     the KV cache length equals the prompt length (the serving engine
-    copies it into a cache sized for the whole output)."""
-    if frames is not None:
-        raise not_ported("frames (the encoder-decoder)")
+    copies it into a cache sized for the whole output); an
+    encoder-decoder's state also holds each layer's cross-attention K/V,
+    computed here once from ``frames``.  Griffin's local attention leaves
+    a ring of ``attn_window or T`` slots (``_ring_layout``)."""
     dev = _device_for(cfg, device, params)
     tokens = _tokens(tokens, dev)
     b, t = tokens.shape
     x = params["embed"][tokens].to(cfg.dt)
     positions = _positions(b, t, dev)
-    states = []
-    for lp in _layers(params["layers"], cfg.n_layers):
-        if cfg.block_pattern == "rwkv6":
+    enc_out = _encode(params, _frames(frames, cfg, dev), cfg) if cfg.is_encdec else None
+    if cfg.block_pattern == "rwkv6":
+        states = []
+        for lp in _layers(params["layers"]):
             x, st = _rwkv_block(cfg, lp, x)
             states.append(st)
-            continue
-        hin = rms_norm_cfg(x, lp["norm1"], cfg)
-        q, k, v = _qkv(lp["attn"], hin, cfg, positions)
-        att = self_attention(q, k, v, cfg, window=cfg.attn_window)
-        x = x + _heads_out(att, lp["attn"]["wo"])
-        x = x + mlp_apply(lp["mlp"], rms_norm_cfg(x, lp["norm2"], cfg), cfg)
-        states.append({"k": k, "v": v})
+        state = {"layers": _stack(states)}
+    elif cfg.block_pattern == "griffin":
+        win = cfg.attn_window or t
+        groups = []
+        for gp in _layers(params["groups"]):
+            rec = []
+            for rp in gp["rec"]:
+                x, st = _rec_block(cfg, rp, x)
+                rec.append(st)
+            x, _, kv, _ = _attn_block(cfg, gp["attn"], x, positions)
+            groups.append({"rec": rec, "attn": _ring_layout(kv, t, win)})
+        state = {"groups": _stack(groups)}
+        if "tail" in params:
+            tail = []
+            for rp in _layers(params["tail"]):
+                x, st = _rec_block(cfg, rp, x)
+                tail.append(st)
+            state["tail"] = _stack(tail)
+    else:
+        states, cross = [], []
+        for lp in _layers(params["layers"]):
+            x, _, kv, xkv = _attn_block(cfg, lp, x, positions, enc_out)
+            states.append(kv)
+            cross.append(xkv)
+        state = {"layers": _stack(states)}
+        if cfg.is_encdec:
+            state["cross_kv"] = _stack(cross)
     logits = _head(params, x[:, -1:, :], cfg)[:, 0, :]
-    return logits, {"layers": _stack(states)}
+    return logits, state
 
 
 __all__ = [

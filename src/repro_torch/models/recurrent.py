@@ -1,13 +1,13 @@
-"""Recurrent blocks of the port: RWKV6 time/channel mix (Finch).
+"""Recurrent blocks of the port: RWKV6 time/channel mix (Finch) and the
+Griffin RG-LRU block (RecurrentGemma).
 
-The port of ``repro.models.recurrent`` for the serving path.  The
-projections and the data-dependent decay run over the whole sequence at
-once; only the rank-1 state recurrence S_t = diag(w_t) S_{t-1} + k_t^T
-v_t steps over time, in f32, as a plain torch loop (``_rwkv_core_scan``).
+The port of ``repro.models.recurrent``.  RWKV6: the projections and the
+data-dependent decay run over the whole sequence at once; only the
+rank-1 state recurrence S_t = diag(w_t) S_{t-1} + k_t^T v_t steps over
+time, in f32, as a plain torch loop (``_rwkv_core_scan``).  RG-LRU: the
+diagonal recurrence h_t = a_t h_{t-1} + b_t runs as the reference's
+``jax.lax.associative_scan`` tree (``_associative_scan``), in log-depth.
 Every expression mirrors the reference's, in the same dtypes.
-
-The Griffin RG-LRU block waits for a later slice (``ROADMAP.md``,
-Queue 1).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
-from .layers import dense_init, ones, rms_norm, sigmoid, silu
+from .layers import dense_init, gelu, ones, rms_norm, sigmoid, silu
 
 # ---------------------------------------------------------------------------
 # RWKV6 (Finch)
@@ -145,3 +145,110 @@ def rwkv6_cmix(p, x, cfg: ModelConfig, state=None):
     kv = k @ p["wv"]
     out = sigmoid(xr @ p["wr"]) * kv
     return out, {"x_prev": x[:, -1, :]}
+
+
+# ---------------------------------------------------------------------------
+# Griffin RG-LRU recurrent block (RecurrentGemma)
+# ---------------------------------------------------------------------------
+
+_RGLRU_C = 8.0
+
+
+def init_rglru_block(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
+    d = cfg.d_model            # lru width == d_model for recurrentgemma-9b
+    kw = dict(device=device, stack=stack)
+    return {
+        "wx": dense_init(generator, (d, d), cfg.dt, **kw),
+        "wy": dense_init(generator, (d, d), cfg.dt, **kw),
+        "conv_w": dense_init(generator, (cfg.conv1d_width, d), cfg.dt, **kw),
+        "conv_b": torch.zeros((*stack, d), dtype=cfg.dt, device=device),
+        "wa": dense_init(generator, (d, d), cfg.dt, **kw),
+        "wi": dense_init(generator, (d, d), cfg.dt, **kw),
+        "a_param": torch.full((*stack, d), 0.7, dtype=torch.float32, device=device),
+        "wo": dense_init(generator, (d, d), cfg.dt, **kw),
+    }
+
+
+def _temporal_conv(x, w, b, state=None):
+    """Depthwise causal conv1d of width W. x: (B,T,D); state: (B,W-1,D).
+    The taps are summed as the reference's Python ``sum`` adds them, from
+    0, in the compute dtype, then the bias."""
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    t = x.shape[1]
+    out = 0
+    for i in range(width):
+        out = out + xp[:, i:i + t, :] * w[i]
+    new_state = xp[:, -(width - 1):, :] if width > 1 else None
+    return out + b, new_state
+
+
+def _softplus(x):
+    """``jax.nn.softplus``'s own expression, ``logaddexp(x, 0)`` (torch's
+    ``softplus`` computes ``log1p(exp(x))`` and switches to ``x`` above a
+    threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _combine(u, v):
+    """The RG-LRU's associative operator on (a, b) pairs, ``u`` first."""
+    au, bu = u
+    av, bv = v
+    return au * av, bu * av + bv
+
+
+def _interleave(even, odd):
+    """Elements of ``even`` at 0, 2, ... and of ``odd`` at 1, 3, ... (dim 1)."""
+    out = torch.empty((even.shape[0], even.shape[1] + odd.shape[1], *even.shape[2:]),
+                      dtype=even.dtype, device=even.device)
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def _associative_scan(elems):
+    """``jax.lax.associative_scan(_combine, elems, axis=1)``, the same
+    odd/even recursion: O(log T) levels of whole-tensor ops, where a
+    serial loop issues O(T).  The products are re-associated as the
+    reference's tree re-associates them; XLA may still fuse a multiply
+    and add into an FMA where torch rounds twice, so the two agree to f32
+    rounding, not bit for bit."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    reduced = _combine([e[:, 0:-1:2] for e in elems], [e[:, 1::2] for e in elems])
+    odd = _associative_scan(reduced)
+    if n % 2 == 0:
+        even = _combine([e[:, :-1] for e in odd], [e[:, 2::2] for e in elems])
+    else:
+        even = _combine(odd, [e[:, 2::2] for e in elems])
+    even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
+    return [_interleave(e, o) for e, o in zip(even, odd)]
+
+
+def _rglru(a_gate, i_gate, x, a_param, h0):
+    """h_t = a_t h_{t-1} + sqrt(1-a_t^2) (i_t * x_t), via associative scan."""
+    log_a = -_RGLRU_C * _softplus(a_param) * sigmoid(a_gate)
+    a = torch.exp(log_a)                             # (B,T,D) f32
+    b = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=0.0)) * (i_gate * x)
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    _, h_all = _associative_scan([a, b])
+    return h_all, h_all[:, -1, :]
+
+
+def rglru_block(p, x, cfg: ModelConfig, state=None):
+    """Griffin recurrent block. state: {"h": (B,D) f32, "conv": (B,W-1,D)}."""
+    gate = gelu(x @ p["wy"])
+    xb = x @ p["wx"]
+    conv_state = None if state is None else state["conv"]
+    xb, new_conv = _temporal_conv(xb, p["conv_w"], p["conv_b"], conv_state)
+    a_gate = (xb @ p["wa"]).float()
+    i_gate = sigmoid(xb @ p["wi"]).float()
+    h0 = None if state is None else state["h"]
+    h, h_last = _rglru(a_gate, i_gate, xb.float(), p["a_param"], h0)
+    out = (h.to(x.dtype) * gate) @ p["wo"]
+    return out, {"h": h_last, "conv": new_conv}

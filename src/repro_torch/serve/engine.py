@@ -1,10 +1,12 @@
 """Batched token-serving engine of the port: prefill a request batch,
 then step the decode loop with greedy or temperature sampling.
 
-The port of ``repro.serve.engine``: the same prefill, the same replay of
-an attention model's prompt K/V into a cache sized ``t +
-max_new_tokens``, the same decode positions, eos handling and
-``tokens_out`` accounting.  Greedy decoding equals the reference's for
+The port of ``repro.serve.engine``: the same prefill (with an
+encoder-decoder's ``frames``), the same replay of an attention model's
+prompt K/V into a cache sized ``t + max_new_tokens`` (an
+encoder-decoder's cross-attention K/V carried over as they are; the
+sub-quadratic families keep prefill's state), the same decode positions,
+eos handling and ``tokens_out`` accounting.  Greedy decoding equals the reference's for
 the same logits.  Sampling at ``temperature > 0`` draws from a
 ``torch.Generator`` seeded from ``ServeConfig.seed`` on the engine's
 device (``torch.multinomial`` over the tempered softmax): repeatable for
@@ -26,21 +28,22 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models import decode_step, init_serve_state, prefill
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import not_ported
 from repro_torch.models.model import check_supported
 
 
-def prime(params, prompts, cfg: ModelConfig, cache_len: int, device) -> tuple:
-    """Prefill ``prompts`` (B, T) and return (last logits, decode state);
-    an attention model's K/V go into a cache of ``cache_len`` positions
-    (the reference's replay of the prompt into a cache sized for the
-    output)."""
-    logits, state = prefill(params, prompts, cfg, device=device)
+def prime(params, prompts, cfg: ModelConfig, cache_len: int, device, frames=None) -> tuple:
+    """Prefill ``prompts`` (B, T) (and an encoder-decoder's ``frames``)
+    and return (last logits, decode state); an attention model's K/V go
+    into a cache of ``cache_len`` positions (the reference's replay of the
+    prompt into a cache sized for the output)."""
+    logits, state = prefill(params, prompts, cfg, frames=frames, device=device)
     if not cfg.sub_quadratic:
         b, t = prompts.shape
         full = init_serve_state(cfg, b, cache_len, device=device)
         for name in ("k", "v"):
             full["layers"][name][:, :, :t] = state["layers"][name]
+        if cfg.is_encdec:
+            full["cross_kv"] = state["cross_kv"]
         state = full
     return logits, state
 
@@ -74,7 +77,8 @@ class ServingEngine:
         return torch.multinomial(probs, 1, generator=generator)
 
     def generate(self, prompts: np.ndarray, frames=None, return_logits: bool = False):
-        """prompts: (B, T) int32 -> (B, T + max_new) generated ids.
+        """prompts: (B, T) int32 -> (B, T + max_new) generated ids; an
+        encoder-decoder also takes ``frames`` (B, n_frames, d_model).
 
         With ``return_logits`` also the f32 logits each new token was
         sampled from, (B, n_new, V) on the engine's device."""
@@ -82,10 +86,9 @@ class ServingEngine:
         b, t = prompts.shape
         gen = torch.Generator(device=dev).manual_seed(scfg.seed)
 
-        if frames is not None:
-            raise not_ported("frames (the encoder-decoder)")
         t0 = time.perf_counter()
-        logits, state = prime(self.params, prompts, cfg, t + scfg.max_new_tokens, dev)
+        logits, state = prime(self.params, prompts, cfg, t + scfg.max_new_tokens, dev,
+                              frames=frames)
         self._sync()
         self.metrics["prefill_s"] += time.perf_counter() - t0
 

@@ -20,6 +20,7 @@ seed.  Tolerances:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -37,8 +38,8 @@ from repro_torch.models.model import _grad_to_bf16, _GradToBf16, tree_leaves, tr
 
 LOSS_REL, GRAD_REL = 1e-5, 1e-4
 BF16_LOSS_REL, BF16_GRAD_REL = 2e-3, 0.25
-ARCHS = ["rwkv6_1_6b", "qwen3_8b", "yi_6b"]
-WAITING = ["recurrentgemma_9b", "qwen2_moe_a2_7b", "whisper_tiny"]
+ARCHS = ["rwkv6_1_6b", "qwen3_8b", "yi_6b", "recurrentgemma_9b", "qwen2_moe_a2_7b",
+         "qwen3_moe_30b_a3b", "whisper_tiny"]
 
 
 def configs(arch: str, **kw):
@@ -52,9 +53,18 @@ def jax_params(arch: str, dtype: str):
     return jax.jit(lambda key: j_init(jc, key))(jax.random.PRNGKey(0))
 
 
-def _batch(vocab: int, b: int = 2, t: int = 12, seed: int = 1) -> dict:
-    toks = np.random.default_rng(seed).integers(0, vocab, (b, t + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+def jc_moe(arch: str) -> bool:
+    return configs(arch)[0].moe is not None
+
+
+def _batch(cfg, b: int = 2, t: int = 12, seed: int = 1) -> dict:
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, t + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encdec:
+        shape = (b, cfg.encoder.n_frames, cfg.d_model)
+        batch["frames"] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    return batch
 
 
 def _rel_err(a, b) -> float:
@@ -73,8 +83,14 @@ def port_value_and_grad(params, batch, cfg):
 def both_grads(arch: str, dtype: str, **kw):
     jc, tc = configs(arch, dtype=dtype, **kw)
     jp = jax_params(arch, dtype)
-    batch = _batch(jc.vocab_size)
-    (jl, jm), jg = jax.jit(jax.value_and_grad(lambda p: j_loss(p, batch, jc), has_aux=True))(jp)
+    batch = _batch(jc)
+    # bf16 MoE against the reference run op by op: jitted, XLA's excess
+    # precision across fused bf16 ops flips near-tied routing choices
+    # (test_torch_models.model_run).
+    unfused = dtype == "bfloat16" and jc.moe is not None
+    with jax.disable_jit() if unfused else contextlib.nullcontext():
+        (jl, jm), jg = jax.jit(jax.value_and_grad(lambda p: j_loss(p, batch, jc),
+                                                  has_aux=True))(jp)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     tl, tm, tg = port_value_and_grad(tp, batch, tc)
     names = list(flatten_params(tp))
@@ -87,7 +103,10 @@ def test_loss_and_grads_f32(arch):
     assert tl.dtype == torch.float32 and tl.shape == ()
     assert abs(float(jl) - float(tl)) <= LOSS_REL * abs(float(jl))
     assert abs(float(jm["nll"]) - float(tm["nll"].detach())) <= LOSS_REL * abs(float(jm["nll"]))
-    assert float(tm["aux"].detach()) == float(jm["aux"]) == 0.0
+    if jc_moe(arch):
+        assert abs(float(jm["aux"]) - float(tm["aux"].detach())) <= LOSS_REL * float(jm["aux"])
+    else:
+        assert float(tm["aux"].detach()) == float(jm["aux"]) == 0.0
     assert len(jg) == len(tg) == len(names)
     for name, a, b in zip(names, jg, tg):
         assert b.dtype == torch.float32 and tuple(b.shape) == a.shape, name
@@ -99,7 +118,8 @@ def test_loss_and_grads_bf16(arch):
     (jl, _, jg), (tl, _, tg), names = both_grads(arch, "bfloat16")
     assert abs(float(jl) - float(tl)) <= BF16_LOSS_REL * abs(float(jl))
     for name, a, b in zip(names, jg, tg):
-        assert b.dtype == torch.bfloat16, name
+        # bf16 but the f32 leaves (the MoE router, the RG-LRU's a_param)
+        assert b.dtype == (torch.float32 if a.dtype == np.float32 else torch.bfloat16), name
         assert _rel_err(a, b) <= BF16_GRAD_REL, (name, _rel_err(a, b))
 
 
@@ -109,7 +129,7 @@ def test_remat_policies_bit_equal(arch):
     gradients, bit for bit."""
     _, tc = configs(arch, dtype="float32")
     tp = params_from_numpy(jax.tree.map(np.asarray, jax_params(arch, "float32")), device="cpu")
-    batch = _batch(tc.vocab_size)
+    batch = _batch(tc)
     runs = [port_value_and_grad(tp, batch, tc.with_(remat=r)) for r in ("none", "minimal", "full")]
     for loss, _, grads in runs[1:]:
         assert torch.equal(loss, runs[0][0])
@@ -140,7 +160,7 @@ def test_minimal_remat_saves_only_weight_products():
     counts = {}
     for remat in ("none", "minimal", "full"):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(tp)]
-        loss, _ = loss_fn(tree_unflatten(tp, leaves), _batch(tc.vocab_size),
+        loss, _ = loss_fn(tree_unflatten(tp, leaves), _batch(tc),
                           tc.with_(remat=remat), device="cpu")
         with Count() as c:
             torch.autograd.grad(loss, leaves)
@@ -171,13 +191,3 @@ def test_grad_to_bf16_delivers_bf16_cotangents():
     # autograd hands x its own dtype back, holding the bf16-rounded values
     assert torch.equal(x.grad, g.to(torch.bfloat16).float())
     assert not torch.equal(x.grad, g)
-
-
-@pytest.mark.parametrize("arch", WAITING)
-def test_loss_fn_waiting_families_raise(arch):
-    _, tc = configs(arch)
-    batch = {"tokens": np.zeros((1, 4), np.int32), "labels": np.zeros((1, 4), np.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        loss_fn({}, batch, tc, device="cpu")
-
-

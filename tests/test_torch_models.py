@@ -10,7 +10,8 @@ function on them.  Tolerances, on max abs error:
   two smoke layers: only the summation order of the matmuls differs);
   layers alone ``LAYER_TOL`` = 1e-5.
 * bf16: ``BF16_TOL`` = 0.15 on logits, scaled by ``max(1, |ref|)`` on
-  states.  Every bf16 layer alone is bit-equal to the reference here
+  states (the MoE configs against the reference run op by op, see
+  ``model_run``).  Every bf16 layer alone is bit-equal to the reference here
   (``test_bf16_layers_bit_equal``), but XLA on the CPU keeps excess
   precision across fused ops (a residual sum feeds the next norm
   unrounded), so whole blocks differ by a few bf16 ulps (measured
@@ -21,6 +22,7 @@ function on them.  Tolerances, on max abs error:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -50,6 +52,7 @@ from repro_torch.models import (
     forward,
     init_params,
     init_serve_state,
+    loss_fn,
     params_from_numpy,
     prefill,
     unflatten_params,
@@ -57,8 +60,8 @@ from repro_torch.models import (
 from repro_torch.serve import ServingEngine
 
 SUPPORTED = ["qwen3_8b", "yi_6b", "nemotron_4_15b", "nemotron_4_340b",
-             "chameleon_34b", "rwkv6_1_6b"]
-WAITING = ["recurrentgemma_9b", "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b", "whisper_tiny"]
+             "chameleon_34b", "rwkv6_1_6b", "recurrentgemma_9b", "qwen2_moe_a2_7b",
+             "qwen3_moe_30b_a3b", "whisper_tiny"]
 F32_TOL = 1e-4
 BF16_TOL = 0.15
 LAYER_TOL = 1e-5
@@ -85,7 +88,8 @@ def jax_paths(tree) -> list[tuple[str, tuple, str]]:
     """(dotted path, shape, dtype name) of every leaf, in jax.tree order."""
     out = []
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        name = ".".join(str(k.key) for k in path)
+        name = ".".join(str(k.idx if isinstance(k, jax.tree_util.SequenceKey) else k.key)
+                        for k in path)
         out.append((name, tuple(leaf.shape), jnp.dtype(leaf.dtype).name))
     return out
 
@@ -98,6 +102,14 @@ def to_port(jparams) -> dict:
 def jax_params(arch: str, dtype: str | None = None):
     jc, _ = configs(arch, dtype=dtype)
     return jax.jit(lambda key: j_init(jc, key))(jax.random.PRNGKey(0))
+
+
+def frames_for(cfg, b: int = B, seed: int = 21):
+    """An encoder-decoder's frame embeddings from a numpy seed, else None."""
+    if not cfg.is_encdec:
+        return None
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, cfg.encoder.n_frames, cfg.d_model)) * 0.1).astype(np.float32)
 
 
 def configs(arch: str, smoke: bool = True, dtype: str | None = None):
@@ -375,25 +387,38 @@ def model_run(arch: str, dtype: str) -> dict:
     jparams = jax_params(arch, dtype)
     params = to_port(jparams)
     toks = np.random.default_rng(20).integers(0, jc.vocab_size, (B, T)).astype(np.int32)
-    out = {"jax": {}, "port": {}}
-    out["jax"]["forward"] = _np(jax.jit(lambda p, t: j_forward(p, t, jc))(jparams, toks)[0])
-    out["port"]["forward"] = forward(params, toks, tc, device="cpu")[0].numpy()
-    jl, jst = jax.jit(lambda p, t: j_prefill(p, t, jc))(jparams, toks)
-    tl, tst = prefill(params, toks, tc, device="cpu")
-    out["jax"]["prefill"] = (_np(jl), {n: _np(a) for n, a in _paths(jst)})
-    out["port"]["prefill"] = (tl.numpy(), {n: a.float().numpy()
-                                           for n, a in flatten_params(tst).items()})
-    step = jax.jit(lambda p, tk, pos, s: j_decode(p, tk, pos, s, jc))
-    jst, tst = j_state(jc, B, T), init_serve_state(tc, B, T, device="cpu")
-    jd, td = [], []
-    for i in range(DECODE_STEPS):
-        a, jst = step(jparams, toks[:, i:i + 1], jnp.int32(i), jst)
-        b, tst = decode_step(params, toks[:, i:i + 1], i, tst, tc, device="cpu")
-        jd.append(_np(a))
-        td.append(b.numpy())
-    out["jax"]["decode"] = (np.stack(jd, 1), {n: _np(a) for n, a in _paths(jst)})
-    out["port"]["decode"] = (np.stack(td, 1), {n: a.float().numpy()
-                                               for n, a in flatten_params(tst).items()})
+    fr = frames_for(jc)
+    jfr = None if fr is None else jnp.asarray(fr)
+    # In bf16 the MoE configs are held to the reference run op by op:
+    # jitted, XLA keeps excess precision across fused bf16 ops, the
+    # router sees other inputs and a near-tied routing choice flips (the
+    # jitted qwen3-moe smoke forward lies 0.94 from its own unfused run,
+    # which the port's equals bit for bit).
+    unfused = dtype == "bfloat16" and jc.moe is not None
+    with jax.disable_jit() if unfused else contextlib.nullcontext():
+        out = {"jax": {}, "port": {}}
+        jf, jaux = jax.jit(lambda p, t, f: j_forward(p, t, jc, f))(jparams, toks, jfr)
+        tf, taux = forward(params, toks, tc, frames=fr, device="cpu")
+        out["jax"]["forward"], out["port"]["forward"] = _np(jf), tf.numpy()
+        out["jax"]["aux"], out["port"]["aux"] = float(jaux), float(taux)
+        jl, jpre = jax.jit(lambda p, t, f: j_prefill(p, t, jc, f))(jparams, toks, jfr)
+        tl, tpre = prefill(params, toks, tc, frames=fr, device="cpu")
+        out["jax"]["prefill"] = (_np(jl), {n: _np(a) for n, a in _paths(jpre)})
+        out["port"]["prefill"] = (tl.numpy(), {n: a.float().numpy()
+                                               for n, a in flatten_params(tpre).items()})
+        step = jax.jit(lambda p, tk, pos, s: j_decode(p, tk, pos, s, jc))
+        jst, tst = j_state(jc, B, T), init_serve_state(tc, B, T, device="cpu")
+        if jc.is_encdec:  # decode against the prefill's cross-attention K/V
+            jst["cross_kv"], tst["cross_kv"] = jpre["cross_kv"], tpre["cross_kv"]
+        jd, td = [], []
+        for i in range(DECODE_STEPS):
+            a, jst = step(jparams, toks[:, i:i + 1], jnp.int32(i), jst)
+            b, tst = decode_step(params, toks[:, i:i + 1], i, tst, tc, device="cpu")
+            jd.append(_np(a))
+            td.append(b.numpy())
+        out["jax"]["decode"] = (np.stack(jd, 1), {n: _np(a) for n, a in _paths(jst)})
+        out["port"]["decode"] = (np.stack(td, 1), {n: a.float().numpy()
+                                                   for n, a in flatten_params(tst).items()})
     return out
 
 
@@ -412,6 +437,10 @@ def test_forward_equal(arch, dtype):
     a, b = run["jax"]["forward"], run["port"]["forward"]
     assert a.shape == b.shape == (B, T, configs(arch)[0].vocab_size)
     assert np.abs(a - b).max() < _tol(dtype)
+    # the MoE aux loss: relative, as test_torch_loss.py holds the loss
+    rel = 1e-5 if dtype == "float32" else 2e-3
+    assert abs(run["jax"]["aux"] - run["port"]["aux"]) <= rel * run["jax"]["aux"]
+    assert (run["jax"]["aux"] > 0) == (configs(arch)[0].moe is not None)
 
 
 @pytest.mark.parametrize("what", ["prefill", "decode"])
@@ -433,8 +462,11 @@ def test_serve_path_equal(arch, dtype, what):
 
 def test_decode_matches_forward_in_port():
     """The invariant the reference's own suite pins (test_archs.py):
-    decode-step logits equal the full forward's, in f32 here."""
-    for arch in ("qwen3_8b", "rwkv6_1_6b"):
+    decode-step logits equal the full forward's, in f32 here (griffin's
+    ring past its wrap; whisper against the prefill's cross-attention
+    K/V).  MoE is left out: at B = 2 decode drops routed slots the
+    forward keeps (``test_torch_moe.py``)."""
+    for arch in ("qwen3_8b", "rwkv6_1_6b", "recurrentgemma_9b", "whisper_tiny"):
         run = model_run(arch, "float32")
         assert np.abs(run["port"]["decode"][0] - run["port"]["forward"]).max() < F32_TOL
 
@@ -464,21 +496,30 @@ def test_decode_past_the_cache_end(pos):
 # -- what waits, and the device rule ---------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", WAITING)
-def test_waiting_families_raise(arch):
+#: entry points that reach ``self_attention`` over a prompt, where
+#: ``attn_impl="blockwise"`` (``blockwise_sdpa``) still raises.
+BLOCKWISE_CALLS = {
+    "forward": lambda p, tc, toks, fr: forward(p, toks, tc, frames=fr, device="cpu"),
+    "prefill": lambda p, tc, toks, fr: prefill(p, toks, tc, frames=fr, device="cpu"),
+    "loss_fn": lambda p, tc, toks, fr: loss_fn(
+        p, {"tokens": toks, "labels": toks, "frames": fr}, tc, device="cpu"),
+    "generate": lambda p, tc, toks, fr: ServingEngine(tc, p, device="cpu").generate(
+        toks, frames=fr),
+}
+
+
+@pytest.mark.parametrize("call", sorted(BLOCKWISE_CALLS))
+@pytest.mark.parametrize("arch", ["qwen3_8b", "recurrentgemma_9b", "qwen3_moe_30b_a3b",
+                                  "whisper_tiny"])
+def test_waiting_paths_raise(arch, call):
+    """What is still not ported names its ROADMAP.md item; every config
+    is accepted now."""
     _, tc = configs(arch)
+    tc = tc.with_(attn_impl="blockwise")
+    params = init_params(tc, torch.Generator().manual_seed(0), device="cpu")
     toks = np.zeros((1, 4), np.int32)
-    calls = [
-        lambda: init_params(tc, torch.Generator().manual_seed(0), device="cpu"),
-        lambda: forward({}, toks, tc, device="cpu"),
-        lambda: prefill({}, toks, tc, device="cpu"),
-        lambda: decode_step({}, toks[:, :1], 0, {}, tc, device="cpu"),
-        lambda: init_serve_state(tc, 1, 4, device="cpu"),
-        lambda: ServingEngine(tc, {}, device="cpu"),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            call()
+    with pytest.raises(NotImplementedError, match="blockwise_sdpa.*ROADMAP.md Queue 2 a4"):
+        BLOCKWISE_CALLS[call](params, tc, toks, frames_for(tc, b=1))
 
 
 def test_entry_points_need_a_card():

@@ -28,7 +28,8 @@ from repro_torch.models import forward, params_from_numpy
 from repro_torch.serve import ServeConfig, ServingEngine, TokenServingEngine
 
 SUPPORTED = ["qwen3_8b", "yi_6b", "nemotron_4_15b", "nemotron_4_340b",
-             "chameleon_34b", "rwkv6_1_6b"]
+             "chameleon_34b", "rwkv6_1_6b", "recurrentgemma_9b", "qwen2_moe_a2_7b",
+             "qwen3_moe_30b_a3b", "whisper_tiny"]
 NEW = 6
 
 
@@ -46,6 +47,14 @@ def prompts(vocab: int, b: int, t: int, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, vocab, (b, t)).astype(np.int32)
 
 
+def frames(cfg, b: int, seed: int = 0):
+    """An encoder-decoder's frame embeddings from a numpy seed, else None."""
+    if not cfg.is_encdec:
+        return None
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, cfg.encoder.n_frames, cfg.d_model)) * 0.1).astype(np.float32)
+
+
 def engines(arch: str, **kw):
     jc, tc, jp, tp = pair(arch)
     return (JServingEngine(jc, jp, JServeConfig(**kw)),
@@ -57,25 +66,29 @@ def engines(arch: str, **kw):
 def test_greedy_equals_jax(arch, t):
     jeng, teng = engines(arch, max_new_tokens=NEW)
     p = prompts(pair(arch)[1].vocab_size, 2, t, seed=t)
-    want = jeng.generate(p)
-    got = teng.generate(p)
+    f = frames(pair(arch)[1], 2, seed=t)
+    want = jeng.generate(p, f)
+    got = teng.generate(p, frames=f)
     assert got.dtype == np.int32 and got.shape == (2, t + NEW)
     np.testing.assert_array_equal(got, want)
     assert teng.metrics["tokens_out"] == jeng.metrics["tokens_out"] == 2 * NEW
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "qwen3_8b", "rwkv6_1_6b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "qwen3_8b", "rwkv6_1_6b", "recurrentgemma_9b",
+                                  "whisper_tiny"])
 def test_greedy_continuation_matches_full_forward(arch):
     """The prefill-replay + decode path gives the tokens of repeated full
     forwards (the reference's test_serve.py invariant), and the logits it
-    returns are the ones each token was taken from."""
+    returns are the ones each token was taken from.  Griffin's 7-token
+    prompt and 5 new tokens pass its 8-slot ring's wrap."""
     _, tc, _, tp = pair(arch)
     p = prompts(tc.vocab_size, 2, 7)
+    f = frames(tc, 2)
     fast, logits = ServingEngine(tc, tp, ServeConfig(max_new_tokens=5),
-                                 device="cpu").generate(p, return_logits=True)
+                                 device="cpu").generate(p, frames=f, return_logits=True)
     toks = torch.from_numpy(p).long()
     for i in range(5):
-        full, _ = forward(tp, toks, tc, device="cpu")
+        full, _ = forward(tp, toks, tc, frames=f, device="cpu")
         assert torch.allclose(logits[:, i], full[:, -1], atol=1e-4, rtol=0)
         toks = torch.cat([toks, full[:, -1].argmax(-1)[:, None]], dim=1)
     np.testing.assert_array_equal(fast, toks.numpy())
