@@ -98,6 +98,25 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    band the run measures, as ``[lm]`` does).
    Every launch count is set to 0 just before the run and read after the
    resumed steps.
+   **The mesh** (``[mesh]``), still deterministic: ``[train]``'s run
+   again with ``Trainer(mesh=make_local_mesh(1, 1))`` on a one-rank NCCL
+   group, every state leaf a DTensor laid out by
+   ``train_state_shardings``; its losses and final state (a digest of
+   every leaf's words) equal ``[train]``'s mesh-less run's; the save at
+   step 4 gathers each leaf, a node holding chunks fails, the restore is
+   bit-equal, ``reshard_state`` lays it onto a freshly built mesh, and
+   steps 5-6 are bit-equal to the uninterrupted mesh run.  Then
+   Qwen1.5-MoE-A2.7B at full width with DTensor params under
+   ``activate_mesh``, so ``moe_dispatch="shard_map"`` runs per shard:
+   forward and prefill logits bit-equal to the mesh-less scatter path
+   and no routing choice flipped at capacity factor 8, the first MoE
+   layer routing alike at the config's 1.25.  Then Qwen3-8B at full
+   width with ``attn_impl="blockwise"``: a 4,096-token prefill and 8
+   greedy tokens against the dense path (tokens equal, logits within
+   ``MESH_BF16_BAND`` of their max; each path's ms and device peak), and
+   in f32 at 2 layers the logits and ``loss_fn``'s gradients within
+   ``MESH_F32_TOL`` of max.  Every launch count is set to 0 just before
+   the training run and read after the resumed steps.
 10. **The other model families** (``[families]``): Qwen3-30B-A3B and
    Qwen1.5-MoE-A2.7B (MoE), RecurrentGemma-9B (Griffin) and whisper-tiny
    (encoder-decoder, with (4, 1500, 384) frame embeddings from ``--seed``)
@@ -119,7 +138,7 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    bit-equal logits.  Every launch count is set to 0 just before the
    phase and read just after.
 11. **Timing** of each kernel and its plain version, with CUDA events, at
-   the shapes the main, training and families paths launched (and, for
+   the shapes the main, training, mesh and families paths launched (and, for
    ``pb_frontier``, at the decisions-at-scale shape, the committed
    stream's shape and a wide row on the shared-memory variant), with the
    variant and ns per DP step.
@@ -136,6 +155,7 @@ import collections
 import concurrent.futures
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import pathlib
@@ -1962,6 +1982,8 @@ def phase_train(seed: int) -> dict:
     for name, t in train_state_dict(state).items():
         if not torch.equal(t, want[name]):
             raise AssertionError(f"the resumed run's final state differs at {name}")
+    final_digest = state_digest(want)
+    del want
     launches = rs_bitmatmul.launches
     per_kind = ops.launch_stats()
     frontier_launches = pb_frontier.launches
@@ -1973,7 +1995,7 @@ def phase_train(seed: int) -> dict:
                           or per_kind["decode"] == 0):
         raise AssertionError(f"launch counts disagree: {launches} vs {per_kind}")
     device_peak_phase = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
-    del final, want, fabric, ck
+    del final, fabric, ck
     share = wkv_train_share(make_train_step(cfg, opt_cfg), state, resumed.data.next_batch(),
                             cfg)
     del state
@@ -2025,7 +2047,386 @@ def phase_train(seed: int) -> dict:
     log("[train] card against CPU, f32: " + json.dumps(
         {k: report[k] for k in ("card_vs_cpu_f32", "card_vs_cpu_s", "phase_s")}))
     return {"report": report, "issued": issued, "launches": launches,
-            "frontier_launches": frontier_launches, "frontier_shapes": frontier_shapes}
+            "frontier_launches": frontier_launches, "frontier_shapes": frontier_shapes,
+            "history": history, "digest": final_digest}
+
+
+def state_digest(named: dict) -> dict:
+    """A fingerprint of every leaf's bytes, computed on its device: two
+    position-weighted 64-bit sums of its 32-bit words (wrapping), so two
+    states compare without a second copy of either."""
+    out = {}
+    for name, t in named.items():
+        words = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        words = words.view(torch.int32 if words.numel() % 4 == 0 else torch.uint8).reshape(-1)
+        a = b = 0
+        for lo in range(0, words.numel(), 1 << 26):
+            w = words[lo:lo + (1 << 26)].to(torch.int64)
+            pos = torch.arange(lo, lo + w.numel(), device=w.device, dtype=torch.int64)
+            a += int((w * (pos * 2654435761 + 97)).sum())
+            b += int((w * (pos % 65521 + 1)).sum())
+        out[name] = (str(t.dtype), tuple(t.shape), a, b)
+    return out
+
+
+# -- 9b. the mesh -------------------------------------------------------------
+
+#: [mesh]: the MoE model whose shard_map dispatch runs on a one-rank mesh,
+#: its capacity factors (the reference's own equivalence tests use 8.0,
+#: where the per-shard queues over the 64 padded experts and the scatter
+#: path's over the 60 real ones drop nothing: logits bit-equal and no
+#: routing choice flipped; at the config's 1.25 they hold 40 and 43
+#: slots, so the two drop different tokens by design, and only each
+#: pass's first MoE layer, which sees the same inputs, must route alike);
+#: the blockwise attention model, its prompt and its f32 check.
+MESH_MOE_ARCH = "qwen2_moe_a2_7b"
+MESH_MOE_CF = 8.0
+MESH_ATTN_ARCH = "qwen3_8b"
+MESH_ATTN_SEQ = 4096
+MESH_ATTN_NEW = 8
+MESH_F32_LAYERS, MESH_F32_SEQ = 2, 2048
+#: blockwise against dense in f32: max abs error within this share of the
+#: dense values' max |x| (forward logits, and each gradient leaf).
+MESH_F32_TOL = 1e-5
+#: blockwise against dense in bf16: the dense path rounds its scores to
+#: bf16 before the softmax, the blockwise one keeps them f32, so served
+#: logits move by that rounding: max abs difference within this share of
+#: the dense logits' max |x|.
+MESH_BF16_BAND = 0.05
+#: a CPU rehearsal sets this to run the smoke configs.
+MESH_SMOKE = False
+
+
+def on_mesh(tree, axes, mesh):
+    """Every tensor of ``tree`` as a DTensor on ``mesh`` laid out as its
+    logical ``axes`` say (on a one-rank mesh: the tensors themselves)."""
+    from repro_torch.models.sharding import NamedSharding, logical_to_spec
+    from repro_torch.train.step import lay_out
+
+    from repro_torch.models.model import tree_map
+
+    return tree_map(lambda x, ax: lay_out(x, NamedSharding(mesh, logical_to_spec(
+        ax, x.shape, mesh))), tree, axes)
+
+
+def mesh_train(seed: int, reference: dict) -> dict:
+    """[train]'s run with the Trainer on a one-rank mesh: DTensor state,
+    saved through D-Rex SC at step 4, node 3's chunks lost, restored,
+    resharded onto a freshly built mesh, resumed; held to the
+    uninterrupted mesh run and to [train]'s mesh-less run."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointPolicy, DRexCheckpointer, StorageFabric
+    from repro_torch.configs import get_config
+    from repro_torch.core import shapes
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops, pb_frontier, rs_bitmatmul
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.storage import make_node_set
+    from repro_torch.train import (Trainer, TrainerConfig, TrainStateCheckpointer,
+                                   init_train_state, reshard_state, train_state_dict)
+    from repro_torch.train.interop import _named
+
+    cfg = get_config(TRAIN_ARCH, smoke=MESH_SMOKE)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    fabric = StorageFabric(make_node_set("most_used"))
+    ck = DRexCheckpointer(fabric, "drex_sc", CheckpointPolicy(), device=DEV)
+    like = init_train_state(cfg, torch.Generator(), device="meta")
+    recorder = SnapshotCheckpointer(TrainStateCheckpointer(ck, like))
+
+    def trainer(step_ms: list, mesh):
+        t = Trainer(cfg, opt_cfg,
+                    TrainerConfig(steps=TRAIN_STEPS, log_every=1, ckpt_every=TRAIN_CKPT_EVERY,
+                                  seed=seed, async_ckpt=True),
+                    data_cfg=DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed),
+                    mesh=mesh, checkpointer=recorder, log_fn=lambda s, m: None,
+                    device=entry_device())
+        timed_steps(t, step_ms)
+        return t
+
+    def all_dtensors(state, mesh) -> int:
+        named = _named(state)
+        bad = [n for n, t in named if not (isinstance(t, DTensor) and t.device_mesh == mesh)]
+        if bad:
+            raise AssertionError(f"[mesh] leaves not on the mesh: {bad[:4]}")
+        return len(named)
+
+    mesh = make_local_mesh(1, 1, device=entry_device())
+    shapes.reset()
+    ops.reset_launch_stats()
+    rs_bitmatmul.reset_launches()
+    pb_frontier.reset_launches()
+    step_ms: list = []
+    straight = trainer(step_ms, mesh)
+    final = straight.run()
+    n_leaves = all_dtensors(final, mesh)
+    state_bytes = sum(t.numel() * t.element_size() for t in train_state_dict(final).values())
+    history = list(straight.history)
+    strip = lambda h: {k: h[k] for k in ("step", "loss", "nll", "grad_norm", "lr")}
+    if [strip(h) for h in history] != [strip(h) for h in reference["history"]]:
+        raise AssertionError(f"[mesh] losses differ from the mesh-less run: "
+                             f"{[strip(h) for h in history]} against "
+                             f"{[strip(h) for h in reference['history']]}")
+    if state_digest(train_state_dict(final)) != reference["digest"]:
+        raise AssertionError("[mesh] final state differs from the mesh-less run's")
+    at_save = recorder.snapshot
+    after_save = ops.launch_stats()
+    manifest = ck._manifests[TRAIN_CKPT_EVERY]
+    groups = [g for m in manifest["leaves"] for g in m["groups"]]
+    victim = groups[0]["node_ids"][0]
+    fabric.fail_node(victim)
+    resumed_ms: list = []
+    resumed = trainer(resumed_ms, make_local_mesh(1, 1, device=entry_device()))
+    state, restore_ms = host_ms(resumed.init_or_restore)
+    if resumed.start_step != TRAIN_CKPT_EVERY:
+        raise AssertionError(f"restored step {resumed.start_step}, saved {TRAIN_CKPT_EVERY}")
+    restored = train_state_dict(state)
+    if list(restored) != list(at_save):
+        raise AssertionError("the restored TrainState's leaves differ from the saved one's")
+    for name, t in restored.items():
+        if not (t.dtype == at_save[name].dtype and torch.equal(t, at_save[name].to(t.device))):
+            raise AssertionError(f"[mesh] restore after node {victim} failed differs at {name}")
+    del at_save, restored
+    recorder.snapshot = {}
+    fresh = make_local_mesh(1, 1, device=entry_device())
+    state, reshard_ms = host_ms(lambda: reshard_state(state, cfg, fresh))
+    all_dtensors(state, fresh)
+    after_restore = ops.launch_stats()
+    state = resumed.run(state)
+    for a, b in zip(history[TRAIN_CKPT_EVERY:], resumed.history):
+        if strip(a) != strip(b):
+            raise AssertionError(f"[mesh] resumed step {b['step']} differs: {b} against {a}")
+    want = train_state_dict(final)
+    for name, t in train_state_dict(state).items():
+        if not torch.equal(t, want[name]):
+            raise AssertionError(f"[mesh] the resumed run's final state differs at {name}")
+    del want, final, state
+    launches = rs_bitmatmul.launches
+    per_kind = ops.launch_stats()
+    out = {
+        "leaves_on_mesh": n_leaves, "mesh": {"shape": list(mesh.shape),
+                                             "axes": list(mesh.mesh_dim_names)},
+        "step_ms": step_ms, "step_ms_p50": statistics.median(step_ms),
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (statistics.median(step_ms) / 1e3),
+        "resumed_step_ms": resumed_ms,
+        "history": [strip(h) for h in history],
+        "bit_equal_to_meshless": {"losses": True, "final_state_digest": True},
+        "save": {k: recorder.times[k] for k in ("stall_s", "save_s")},
+        "failed_node": victim, "restore_s": restore_ms / 1e3, "reshard_s": reshard_ms / 1e3,
+        "restored_bit_equal_to_step": TRAIN_CKPT_EVERY,
+        "resumed_bit_equal": {"losses": True, "final_state": True},
+        "launches": {"rs_bitmatmul": launches, "save_encode": after_save["encode"],
+                     "restore_decode": after_restore["decode"] - after_save["decode"],
+                     "pb_frontier": pb_frontier.launches},
+    }
+    out["save"]["save_GBps"] = state_bytes / 1e9 / recorder.times["save_s"]
+    out["restore_GBps"] = state_bytes / 1e9 / (restore_ms / 1e3)
+    out["_issued"] = sorted(shapes.issued_shapes(ops.CENSUS_KERNEL))
+    out["_frontier_shapes"] = sorted(shapes.issued_shapes("pb_frontier"))
+    ck.close()
+    if DEV == "cuda" and (launches != per_kind["encode"] + per_kind["decode"]
+                          or per_kind["decode"] == 0 or per_kind["encode"] == 0
+                          or pb_frontier.launches == 0):
+        raise AssertionError(f"[mesh] a kernel was skipped: {per_kind}, "
+                             f"{pb_frontier.launches} pb_frontier launches")
+    return out
+
+
+def mesh_moe(seed: int) -> dict:
+    """The shard_map MoE dispatch at full width on a one-rank mesh, its
+    params DTensors: forward and prefill logits bit-equal to the
+    mesh-less scatter path at MESH_MOE_CF, the routing choices equal;
+    at the config's own capacity factor, how the two differ."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import forward, init_params, layers, prefill
+    from repro_torch.models.model import param_axes
+    from repro_torch.models.sharding import activate_mesh
+
+    base = get_config(MESH_MOE_ARCH, smoke=MESH_SMOKE)
+    if base.moe_dispatch != "shard_map":
+        raise AssertionError(f"{base.name} does not dispatch through shard_map")
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = init_params(base, torch.Generator(device=DEV).manual_seed(seed), device=DEV)
+    ids, _ = family_inputs(base, LM_BATCH, LM_PROMPT, seed)
+    mesh = make_local_mesh(1, 1, device=entry_device())
+    dparams = on_mesh(params, param_axes(base), mesh)
+    routes: list = []
+    real_probs = layers.router_probs
+
+    def spy(router, xt, cfg):
+        probs, w, top = real_probs(router, xt, cfg)
+        plain = top.to_local() if hasattr(top, "to_local") else top
+        routes[-1].append(plain.clone())
+        return probs, w, top
+
+    def run(cfg, on):
+        routes.append([])
+        layers.router_probs = spy
+        try:
+            if on:
+                with activate_mesh(mesh):
+                    logits = forward(dparams, ids, cfg, device=entry_device())[0]
+                    last = prefill(dparams, ids, cfg, device=entry_device())[0]
+                logits, last = logits.to_local(), last.to_local()
+            else:
+                logits = forward(params, ids, cfg, device=entry_device())[0]
+                last = prefill(params, ids, cfg, device=entry_device())[0]
+        finally:
+            layers.router_probs = real_probs
+        sync()
+        return logits, last, routes[-1]
+
+    out = {"model": base.name, "experts": base.moe.n_experts,
+           "experts_padded": base.moe.n_experts_padded, "tokens": int(ids.size)}
+    first = (0, base.n_layers)     # each pass's first MoE layer: the same inputs
+    for cf in (MESH_MOE_CF, base.moe.capacity_factor):
+        cfg = base.with_(moe=dataclasses.replace(base.moe, capacity_factor=cf))
+        sm_ms, sc_ms = [], []
+        for _ in range(2):     # the first call warms DTensor's sharding caches
+            (sm, sm_last, sm_routes), ms = host_ms(lambda: run(cfg, True))
+            sm_ms.append(ms)
+            (sc, sc_last, sc_routes), ms = host_ms(
+                lambda: run(cfg.with_(moe_dispatch="scatter"), False))
+            sc_ms.append(ms)
+        flips = [int((a != b).sum()) for a, b in zip(sm_routes, sc_routes)]
+        equal = torch.equal(sm, sc) and torch.equal(sm_last, sc_last)
+        out[f"cf_{cf}"] = {
+            "capacity_shard_map": math.ceil(ids.size * base.moe.experts_per_token
+                                            / base.moe.n_experts_padded * cf),
+            "capacity_scatter": math.ceil(ids.size * base.moe.experts_per_token
+                                          / base.moe.n_experts * cf),
+            "routing_calls": len(sm_routes), "routing_flips": sum(flips),
+            "routing_flips_first_layer": sum(flips[i] for i in first),
+            "logits_bit_equal": equal, "max_abs_diff": max_err(sm, sc),
+            "forward_and_prefill_ms": {"shard_map_on_mesh": sm_ms, "scatter": sc_ms}}
+        if len(sm_routes) != len(sc_routes) or any(flips[i] for i in first):
+            raise AssertionError(f"[mesh] routing differs at capacity factor {cf}: {out}")
+        if cf == MESH_MOE_CF and (sum(flips) or not equal):
+            raise AssertionError(f"[mesh] shard_map logits differ from scatter's: {out}")
+    out["device_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
+    del params, dparams
+    return out
+
+
+def mesh_blockwise(seed: int) -> dict:
+    """Blockwise attention at full width: Qwen3-8B's prefill of one
+    MESH_ATTN_SEQ-token prompt and MESH_ATTN_NEW greedy tokens, blockwise
+    against dense (greedy tokens equal, logits within MESH_BF16_BAND of
+    their max), timed with each path's device peak; then in f32 at
+    MESH_F32_LAYERS layers the forward and loss_fn's gradients within
+    MESH_F32_TOL of max."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    base = get_config(MESH_ATTN_ARCH, smoke=MESH_SMOKE)
+    seq = min(MESH_ATTN_SEQ, 64) if MESH_SMOKE else MESH_ATTN_SEQ
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    params = init_params(base, torch.Generator(device=DEV).manual_seed(seed), device=DEV)
+    ids, _ = family_inputs(base, 1, seq, seed)
+    out = {"model": base.name, "seq_len": seq,
+           "blocks": {"q": base.attn_block_q, "kv": base.attn_block_kv,
+                      "nq": seq // min(base.attn_block_q, seq),
+                      "nk": seq // min(base.attn_block_kv, seq)}}
+    runs = {}
+    for impl in ("dense", "blockwise"):
+        cfg = base.with_(attn_impl=impl)
+        prefill(params, ids, cfg, device=entry_device())      # warm
+        sync()
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated() / 1e9 if DEV == "cuda" else 0.0
+        times = []
+        for _ in range(3):
+            (logits, _), ms = host_ms(lambda: prefill(params, ids, cfg, device=entry_device()))
+            times.append(ms)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
+        eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=MESH_ATTN_NEW),
+                            device=entry_device())
+        toks = eng.generate(ids)
+        runs[impl] = (logits, toks)
+        out[impl] = {"prefill_ms": times, "prefill_ms_p50": statistics.median(times),
+                     "device_peak_GB": peak,
+                     "peak_above_params_GB": None if peak is None else peak - base_mem,
+                     "greedy": np.asarray(toks)[0, seq:].tolist()}
+    (d_logits, d_toks), (b_logits, b_toks) = runs["dense"], runs["blockwise"]
+    scale = float(d_logits.abs().max())
+    diff = max_err(b_logits, d_logits)
+    out["bf16"] = {"max_abs_diff": diff, "of_max": diff / scale, "band": MESH_BF16_BAND,
+                   "greedy_equal": bool(np.array_equal(np.asarray(d_toks),
+                                                       np.asarray(b_toks)))}
+    if not out["bf16"]["greedy_equal"] or diff > MESH_BF16_BAND * scale:
+        raise AssertionError(f"[mesh] blockwise prefill against dense: {out}")
+    del params, runs, d_logits, b_logits
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    cfg = base.with_(dtype="float32", n_layers=MESH_F32_LAYERS)
+    seq = min(MESH_F32_SEQ, 64) if MESH_SMOKE else MESH_F32_SEQ
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(seed), device=DEV)
+    ids, _ = family_inputs(cfg, 1, seq, seed + 1)
+    batch = {"tokens": ids, "labels": np.roll(ids, -1, axis=1)}
+    f32 = {}
+    for impl in ("dense", "blockwise"):
+        c = cfg.with_(attn_impl=impl)
+        from repro_torch.models import forward
+        with torch.no_grad():
+            logits = forward(params, ids, c, device=entry_device())[0]
+        loss, grads = value_and_grads(params, batch, c, entry_device())
+        f32[impl] = (logits, loss, grads)
+    (dl, dloss, dg), (bl, bloss, bg) = f32["dense"], f32["blockwise"]
+    worst = max(max_err(b, d) / max(float(d.abs().max()), 1e-30) for b, d in zip(bg, dg))
+    out["f32"] = {"layers": MESH_F32_LAYERS, "seq_len": seq,
+                  "logits_of_max": max_err(bl, dl) / float(dl.abs().max()),
+                  "loss_abs_diff": abs(float(bloss) - float(dloss)),
+                  "grad_worst_of_max": worst, "tol": MESH_F32_TOL,
+                  "leaves": len(tree_leaves(params))}
+    if out["f32"]["logits_of_max"] > MESH_F32_TOL or worst > MESH_F32_TOL \
+            or out["f32"]["loss_abs_diff"] > MESH_F32_TOL * abs(float(dloss)):
+        raise AssertionError(f"[mesh] f32 blockwise against dense: {out['f32']}")
+    del params, f32
+    return out
+
+
+def phase_mesh(seed: int, train_run: dict) -> dict:
+    """[mesh]: sharded training and elastic restart on a one-rank mesh
+    (RWKV6-1.6B), the shard_map MoE dispatch (Qwen1.5-MoE-A2.7B) and
+    blockwise attention (Qwen3-8B), all at full width."""
+    if not torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("[mesh] trains under torch.use_deterministic_algorithms(True)")
+    t_phase = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    train = mesh_train(seed, train_run)
+    marks = [("train", time.perf_counter())]
+    train["device_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
+    issued, fshapes = train.pop("_issued"), train.pop("_frontier_shapes")
+    log("[mesh] train " + json.dumps(train))
+    torch.use_deterministic_algorithms(False)
+    try:
+        moe = mesh_moe(seed)
+        marks.append(("moe", time.perf_counter()))
+        log("[mesh] moe " + json.dumps(moe))
+        attn = mesh_blockwise(seed)
+        marks.append(("blockwise", time.perf_counter()))
+        log("[mesh] blockwise " + json.dumps(attn))
+    finally:
+        torch.use_deterministic_algorithms(True)
+    report = {"train": train, "moe": moe, "blockwise": attn,
+              "phase_parts_s": {name: t - prev for (_, prev), (name, t)
+                                in zip([("start", t_phase)] + marks, marks)},
+              "phase_s": time.perf_counter() - t_phase}
+    log("[mesh] " + json.dumps({k: report[k] for k in ("phase_parts_s", "phase_s")}))
+    return {"report": report, "issued": issued, "frontier_shapes": fshapes,
+            "launches": train["launches"]["rs_bitmatmul"],
+            "frontier_launches": train["launches"]["pb_frontier"]}
 
 
 # -- 10. the other model families ---------------------------------------------
@@ -2643,6 +3044,8 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     try:
         train_run = timed("train", phase_train, args.seed)
+        torch.cuda.empty_cache()
+        mesh_run = timed("mesh", phase_mesh, args.seed, train_run)
     finally:
         torch.use_deterministic_algorithms(False)
     torch.cuda.empty_cache()
@@ -2650,9 +3053,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows = timed("timing", phase_timing,
                  {"main": main_run["issued"], "train": train_run["issued"],
-                  "families": families["issued"]}, args.seed)
+                  "mesh": mesh_run["issued"], "families": families["issued"]}, args.seed)
     frows = timed("frontier_timing", phase_frontier_timing,
                   {"main": main_run["frontier_shapes"], "train": train_run["frontier_shapes"],
+                   "mesh": mesh_run["frontier_shapes"],
                    "families": families["frontier_shapes"]})
     # The headline shape is the main path's save's widest encode wave.
     save = {(r8 // 8, k8 // 8, n * bb) for r8, k8, n, bb, _ in main_run["save_shapes"]}
@@ -2672,6 +3076,7 @@ def main() -> int:
                 # the LM path: its checkpoint is [main]; serving codes no bytes
                 "lm_path": main_run["launches"],
                 "train": train_run["launches"],
+                "mesh": mesh_run["launches"],
                 "families": families["launches"],
             },
             "max_abs_err": max(x["max_abs_err"] for x in rows),
@@ -2696,6 +3101,7 @@ def main() -> int:
                 "checkpoint_main": main_run["frontier_launches"],
                 "lm_path": main_run["frontier_launches"],
                 "train": train_run["frontier_launches"],
+                "mesh": mesh_run["frontier_launches"],
                 "families": families["frontier_launches"],
                 "sim_at_scale": sum(sim[f"sim_at_scale/{s}"]["pb_frontier_launches"]
                                     for s in (0, 1)),
@@ -2707,6 +3113,7 @@ def main() -> int:
             "variants_by_path": {**path_shapes["variants_by_path"], **{
                 path: sorted({frontier_variant(B * S, W) for B, S, _, _, W, _ in run_shapes})
                 for path, run_shapes in (("train", train_run["frontier_shapes"]),
+                                         ("mesh", mesh_run["frontier_shapes"]),
                                          ("families", families["frontier_shapes"]))}},
             "max_abs_err": max(x["max_abs_err"] for x in frows),
             "matches_plain": True,
@@ -2726,6 +3133,11 @@ def main() -> int:
     log("[summary] " + json.dumps({"cuts": CUTS, "phase_s": phase_s, "lm": {
         arch: {f: r[f] for f in lm_fields if f in r} for arch, r in lm_reports.items()},
         "train": {f: train_run["report"][f] for f in train_fields},
+        "mesh": {"train": {f: mesh_run["report"]["train"][f] for f in (
+            "step_ms_p50", "tokens_per_s", "save", "restore_GBps", "device_peak_GB")},
+                 "moe": mesh_run["report"]["moe"], "blockwise": {
+            k: mesh_run["report"]["blockwise"][k] for k in ("dense", "blockwise", "bf16", "f32")},
+                 "phase_s": mesh_run["report"]["phase_s"]},
         "families": {**families["report"]["served"], "restore": {
             a: {f: r[f] for f in ("save_GBps", "restore_GBps", "groups")}
             for a, r in families["restores"].items()}},

@@ -2,14 +2,18 @@
 
 Every architecture module exposes ``CONFIG`` (the exact published
 configuration) and ``SMOKE`` (a reduced same-family configuration used by
-the CPU tests), as data equal to the JAX package's.  ``input_specs`` (the
-dry run's abstract inputs) waits for the port of ``launch/``.
+the CPU tests), as data equal to the JAX package's.  ``input_specs``
+gives the dry run's abstract inputs: meta-device tensors (shapes and
+dtypes, no storage) for every model input of a cell.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Any
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -78,6 +82,38 @@ def cell_supported(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
             f"{cfg.name} is full-attention (skip per DESIGN.md §5)"
         )
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape) -> dict[str, Any]:
+    """Meta-device stand-ins for every model input of this cell (the
+    reference's ``ShapeDtypeStruct``s: same shapes and dtypes).  ``shape``
+    names one of :data:`SHAPES`, or is a :class:`ShapeSpec`."""
+    from repro_torch.models.model import init_serve_state
+
+    spec = shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
+    b, t = spec.global_batch, spec.seq_len
+
+    def sd(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    frames = lambda: sd((b, cfg.encoder.n_frames, cfg.d_model), cfg.dt)
+    if spec.kind == "train":
+        batch = {"tokens": sd((b, t), torch.int32), "labels": sd((b, t), torch.int32)}
+        if cfg.is_encdec:
+            batch["frames"] = frames()
+        return {"batch": batch}
+    if spec.kind == "prefill":
+        out = {"tokens": sd((b, t), torch.int32)}
+        if cfg.is_encdec:
+            out["frames"] = frames()
+        return out
+    # decode: one new token against a seq_len-deep state
+    cache_len = t if not cfg.sub_quadratic else (cfg.attn_window or 2048)
+    return {
+        "token": sd((b, 1), torch.int32),
+        "pos": sd((), torch.int32),
+        "state": init_serve_state(cfg, b, cache_len, device="meta"),
+    }
 
 
 def all_cells() -> list[tuple[str, str, bool, str]]:

@@ -54,7 +54,15 @@ from repro_torch.kernels import pb_frontier
 from . import shapes
 from .reliability import _AUTO_EXACT_LIMIT, rna_parity_frontier
 
-__all__ = ["least_used_batch", "min_storage_batch", "rna_frontier_row"]
+__all__ = ["kernel_available", "least_used_batch", "min_storage_batch", "rna_frontier_row"]
+
+
+def kernel_available() -> bool:
+    """True when the device scorer is built for this process: the
+    ``pb_frontier`` kernel it launches has been compiled (or found
+    compiled) and loaded, which its first launch on a card does.  The
+    reference's counterpart says whether JAX imports."""
+    return pb_frontier.loaded()
 
 
 def rna_frontier_row(fail_sorted: np.ndarray, target: float, L: int) -> np.ndarray:

@@ -39,7 +39,15 @@ from repro_torch._device import resolve_device
 
 from . import shapes
 
-__all__ = ["lb_batch"]
+__all__ = ["kernel_available", "lb_batch"]
+
+
+def kernel_available() -> bool:
+    """True when the device scorer is built for this process.  D-Rex LB's
+    is float64 torch ops, with no kernel of its own to compile, so it is
+    ready wherever a CUDA device is.  The reference's counterpart says
+    whether JAX imports."""
+    return torch.cuda.is_available()
 
 
 def _lb_scores(

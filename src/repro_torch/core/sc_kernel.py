@@ -53,12 +53,20 @@ from repro_torch.kernels import pb_frontier
 
 from . import shapes
 
-__all__ = ["score_windows_batch"]
+__all__ = ["kernel_available", "score_windows_batch"]
 
 #: bound on the elements of one item chunk's (candidates x nodes) and
 #: (candidates x candidates) working tensors, so a batch at 10k nodes
 #: stays within a few hundred MB of device memory.
 _CHUNK_ELEMENTS = 1 << 26
+
+
+def kernel_available() -> bool:
+    """True when the device scorer is built for this process: the
+    ``pb_frontier`` kernel it launches has been compiled (or found
+    compiled) and loaded, which its first launch on a card does.  The
+    reference's counterpart says whether JAX imports."""
+    return pb_frontier.loaded()
 
 
 def _shape_plan(L: int, budget: int) -> tuple[int, int]:

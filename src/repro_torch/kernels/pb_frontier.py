@@ -155,6 +155,12 @@ def plan(n_rows: int, width: int, n_sms: int, max_shared: int) -> Plan:
     return Plan("shared", 0, rpb, 32 * rpb, rpb * row_bytes, -(-n_rows // rpb))
 
 
+def loaded() -> bool:
+    """Has this process built (or found built) and loaded the kernel's
+    library?"""
+    return _lib is not None
+
+
 def reset_launches() -> None:
     global launches
     launches = 0

@@ -1,5 +1,5 @@
-"""Launchers of the port: the training driver (``launch/train.py``).  The
-mesh constructors and the multi-pod dry run wait for ``ROADMAP.md``
-Queue 1, item 4."""
+"""Launchers of the port: the training driver (``launch/train.py``), the
+mesh constructors (``launch/mesh.py``) and the multi-pod dry run
+(``launch/dryrun.py``)."""
 
 __all__: list[str] = []

@@ -1,12 +1,14 @@
 """Training launcher of the port:
 ``python -m repro_torch.launch.train --arch rwkv6_1_6b --steps N --ckpt-every K``.
 
-The reference's wiring (``repro.launch.train``) on one device: config
-registry, train step, data pipeline, AdamW, and D-Rex EC-protected
-checkpointing of the whole ``TrainState`` over a heterogeneous storage
-fabric (the ``most_used`` node set, 4 MB groups).  ``--smoke`` runs the
-reduced config; ``--device cpu`` runs on the CPU (the default is CUDA).
-No mesh: that waits for ``ROADMAP.md`` Queue 1, item 4.
+The reference's wiring (``repro.launch.train``): config registry, the
+sharded train step on a one-device mesh (``make_local_mesh(1, 1)``, as
+the reference builds when it sees one device), data pipeline, AdamW, and
+D-Rex EC-protected checkpointing of the whole ``TrainState`` over a
+heterogeneous storage fabric (the ``most_used`` node set, 4 MB groups).
+``--smoke`` runs the reduced config; ``--device cpu`` runs on the CPU
+(the default is CUDA).  In a process with no process group the launcher
+starts a one-rank group for the mesh and ends it on exit.
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ from __future__ import annotations
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import CheckpointPolicy, DRexCheckpointer, StorageFabric
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.optim import AdamWConfig
 from repro_torch.storage import make_node_set
 from repro_torch.train import Trainer, TrainerConfig, TrainStateCheckpointer, init_train_state
@@ -43,6 +47,9 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     print(f"[launch] arch={cfg.name} params~{cfg.n_params()/1e6:.1f}M device={dev}")
+    started_group = not dist.is_initialized()
+    one_device = started_group or dist.get_world_size() == 1
+    mesh = make_local_mesh(1, 1, device=dev) if one_device else None
 
     checkpointer = None
     ck = None
@@ -69,6 +76,7 @@ def main(argv=None) -> None:
             global_batch=args.batch,
             seed=args.seed,
         ),
+        mesh=mesh,
         checkpointer=checkpointer,
         device=dev,
     )
@@ -77,6 +85,8 @@ def main(argv=None) -> None:
     finally:
         if ck is not None:
             ck.close()
+        if started_group:
+            dist.destroy_process_group()
     if trainer.history:
         first, last = trainer.history[0], trainer.history[-1]
         print(f"[launch] loss {first['loss']:.4f} -> {last['loss']:.4f} "

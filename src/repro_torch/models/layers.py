@@ -14,29 +14,34 @@ is plain tensor ops, not ``scaled_dot_product_attention``: the reference
 rounds the scores to the compute dtype before the f32 softmax and the
 probabilities to it before the PV product, which a fused kernel does not.
 
-Waiting for a later slice: ``blockwise_sdpa`` (``ROADMAP.md`` Queue 2
-a4) and the MoE's ``shard_map`` dispatch, which only a mesh reaches
-(Queue 1 item 4; the port has no mesh, so ``moe_apply`` always takes the
-reference's one-device scatter path).
+Under a mesh (:mod:`repro_torch.models.sharding`) the same functions run
+on DTensors: ``constrain`` lays out the reference's constrained
+intermediates, ``reshape`` keeps head splits local to a shard, and the
+MoE's ``shard_map`` dispatch runs per shard
+(:mod:`repro_torch.models.moe_shardmap`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
-
-#: what a caller that reaches code not ported yet is told.
-WAITS = "not ported yet: {what} waits for ROADMAP.md {item}"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(WAITS.format(what=what, item=item))
-
+from .sharding import (
+    active_mesh,
+    axis_names,
+    axis_size,
+    constrain,
+    local_region,
+    matmul,
+    reshape,
+)
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -124,16 +129,29 @@ def init_attention(cfg: ModelConfig, generator, cross: bool = False, *, device,
     return p
 
 
+def attention_axes(cfg: ModelConfig, cross: bool = False) -> dict:
+    a = {
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv_heads", None),
+        "wv": ("embed", "kv_heads", None),
+        "wo": ("heads", None, "embed"),
+    }
+    if cfg.use_qk_norm and not cross:
+        a["q_norm"] = (None,)
+        a["k_norm"] = (None,)
+    return a
+
+
 def _proj_heads(x, w):
     """einsum ``"btd,dhk->bthk"`` as one matmul."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return reshape(matmul(x, reshape(w, d, h * k)), *x.shape[:-1], h, k)
 
 
 def _heads_out(x, w):
     """einsum ``"bthd,hde->bte"`` as one matmul."""
     h, d, e = w.shape
-    return x.reshape(*x.shape[:-2], h * d) @ w.reshape(h * d, e)
+    return matmul(reshape(x, *x.shape[:-2], h * d), reshape(w, h * d, e))
 
 
 def _qkv(p, x, cfg: ModelConfig, positions, x_kv=None, kv_positions=None,
@@ -153,6 +171,38 @@ def _qkv(p, x, cfg: ModelConfig, positions, x_kv=None, kv_positions=None,
     return q, k, v
 
 
+def _per_shard_heads(fn):
+    """``fn(q, k, v, *rest)`` (an attention over (B, T, H, D) heads) run on
+    each shard's batch rows and heads under a mesh: attention needs no
+    communication.  Where the KV heads are replicated but the query heads
+    sharded (fewer KV heads than the model axis), each shard takes the KV
+    heads its query heads read."""
+
+    def body(q, k, v, *rest, hq, hkv, rank):
+        hq_loc, hkv_loc = q.shape[2], k.shape[2]
+        if hkv_loc == hkv and hq_loc < hq:
+            g = hq // hkv
+            lo, hi = rank * hq_loc // g, ((rank + 1) * hq_loc - 1) // g + 1
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        return fn(q, k, v, *rest)
+
+    def wrapped(q, k, v, *rest):
+        mesh = active_mesh()
+        if mesh is None or not isinstance(q, DTensor):
+            return fn(q, k, v, *rest)
+        rank = mesh.get_local_rank("model") if "model" in axis_names(mesh) else 0
+        heads, kv = ("batch", None, "heads", None), ("batch", None, "kv_heads", None)
+        rest_axes = tuple((None,) * r.ndim if isinstance(r, torch.Tensor) else None
+                          for r in rest)
+        region = local_region(
+            functools.partial(body, hq=q.shape[2], hkv=k.shape[2], rank=rank),
+            (heads, kv, kv, *rest_axes), (heads,))
+        return region(q, k, v, *rest)
+
+    return functools.wraps(fn)(wrapped)
+
+
+@_per_shard_heads
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
     """Grouped scaled-dot-product attention.
 
@@ -185,8 +235,79 @@ def causal_mask(t: int, s: int, window: int = 0, offset: int = 0, *, device=None
     return m
 
 
+def _dot_f32(spec: str, a, b):
+    """An einsum with f32 products and accumulation (XLA's
+    ``preferred_element_type=f32``): bf16 operands are widened exactly
+    first."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
+def blockwise_sdpa(q, k, v, cfg: ModelConfig, window: int = 0, q_offset: int = 0):
+    """Flash-style streaming attention, the reference's jnp program.
+
+    Query blocks of ``attn_block_q`` rows, each with an online softmax
+    (running max ``m``, denominator ``l``, f32 accumulator) over every KV
+    block of ``attn_block_kv`` rows in order, so the (T, S) scores are
+    never materialized.  Scores and the PV product are f32 (bf16 operands
+    widened), masked to -1e30 by masks built from block indices (causal,
+    ``window``, ``q_offset``); probabilities are rounded to ``v.dtype``
+    before the PV product; the output divides by ``max(l, 1e-30)``.  When
+    something is differentiated each query block's body is recomputed in
+    the backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint``),
+    keeping residuals at O(T*D)."""
+    return _blockwise(q, k, v, cfg, window, q_offset)
+
+
+@_per_shard_heads
+def _blockwise(q, k, v, cfg: ModelConfig, window: int, q_offset: int):
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    bq = min(cfg.attn_block_q, t)
+    bk = min(cfg.attn_block_kv, s)
+    assert t % bq == 0 and s % bk == 0, (t, s, bq, bk)
+    nq, nk = t // bq, s // bk
+    scale = 1.0 / math.sqrt(d)
+    qb = q.reshape(b, nq, bq, hkv, g, d)
+    kb = k.reshape(b, nk, bk, hkv, d)
+    vb = v.reshape(b, nk, bk, hkv, d)
+
+    def one_q_block(q_blk, kb, vb, qi):
+        qpos = q_offset + qi * bq + torch.arange(bq, device=q.device)
+        m = torch.full((b, hkv, g, bq), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, hkv, g, bq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, hkv, g, bq, d), dtype=torch.float32, device=q.device)
+        for kj in range(nk):
+            kpos = kj * bk + torch.arange(bk, device=q.device)
+            sc = _dot_f32("bqhgd,bkhd->bhgqk", q_blk, kb[:, kj]) * scale
+            valid = kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                valid &= kpos[None, :] > qpos[:, None] - window
+            sc = torch.where(valid, sc, -1e30)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = _dot_f32("bhgqk,bkhd->bhgqd", p.to(v.dtype), vb[:, kj])
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out.permute(0, 3, 1, 2, 4).to(q.dtype)          # (b,bq,hkv,g,d)
+
+    remat = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    blocks = []
+    for qi in range(nq):
+        if remat:
+            blocks.append(checkpoint(one_q_block, qb[:, qi], kb, vb, qi,
+                                     use_reentrant=False, preserve_rng_state=False))
+        else:
+            blocks.append(one_q_block(qb[:, qi], kb, vb, qi))
+    return torch.stack(blocks, dim=1).reshape(b, t, hq, d)
+
+
 def self_attention(q, k, v, cfg: ModelConfig, window: int = 0, q_offset: int = 0):
-    """Causal self-attention: the reference's dense branch."""
+    """Causal self-attention dispatch: dense vs blockwise per config (the
+    blockwise path needs t > 1 and block sizes that divide the lengths)."""
     t, s = q.shape[1], k.shape[1]
     if (
         cfg.attn_impl == "blockwise"
@@ -194,7 +315,7 @@ def self_attention(q, k, v, cfg: ModelConfig, window: int = 0, q_offset: int = 0
         and s % min(cfg.attn_block_kv, s) == 0
         and t > 1
     ):
-        raise not_ported("attn_impl='blockwise' (blockwise_sdpa)", "Queue 2 a4")
+        return blockwise_sdpa(q, k, v, cfg, window=window, q_offset=q_offset)
     return _sdpa(q, k, v, causal_mask(t, s, window, offset=q_offset, device=q.device), cfg)
 
 
@@ -273,6 +394,16 @@ def init_mlp(cfg: ModelConfig, generator, d_ff: Optional[int] = None, *,
     }
 
 
+def mlp_axes(cfg: ModelConfig) -> dict:
+    if cfg.activation == "squared_relu":
+        return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    return {
+        "wg": ("embed", "mlp"),
+        "wi": ("embed", "mlp"),
+        "wo": ("mlp", "embed"),
+    }
+
+
 def sigmoid(x):
     """``jax.nn.sigmoid`` as XLA expands it, ``1 / (1 + exp(-x))``, each
     op rounded to ``x``'s dtype (``torch.sigmoid`` rounds once, and a
@@ -294,12 +425,12 @@ def gelu(x):
 
 def mlp_apply(p, x, cfg: ModelConfig):
     if cfg.activation == "squared_relu":
-        h = torch.square(torch.relu(x @ p["wi"]))
-        return h @ p["wo"]
+        h = torch.square(torch.relu(matmul(x, p["wi"])))
+        return matmul(h, p["wo"])
     act = silu if cfg.activation == "silu" else gelu
-    g = act(x @ p["wg"])
-    h = g * (x @ p["wi"])
-    return h @ p["wo"]
+    g = act(matmul(x, p["wg"]))
+    h = constrain(g * matmul(x, p["wi"]), ("batch", None, "mlp"))
+    return matmul(h, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -323,6 +454,18 @@ def init_moe(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
     return p
 
 
+def moe_axes(cfg: ModelConfig) -> dict:
+    a = {
+        "router": ("embed", "experts"),
+        "wg": ("experts", "embed", "expert_mlp"),
+        "wi": ("experts", "embed", "expert_mlp"),
+        "wo": ("experts", "expert_mlp", "embed"),
+    }
+    if cfg.moe.n_shared_experts:
+        a["shared"] = mlp_axes(cfg)
+    return a
+
+
 def moe_capacity(cfg: ModelConfig, s: int) -> int:
     """Routed slots each expert takes from ``s`` tokens: ``ceil(s*k/E *
     capacity_factor)`` over the unpadded expert count E, in Python floats.
@@ -332,20 +475,18 @@ def moe_capacity(cfg: ModelConfig, s: int) -> int:
     return int(math.ceil(s * m.experts_per_token / m.n_experts * m.capacity_factor))
 
 
-def moe_route(p, xt, cfg: ModelConfig) -> dict:
-    """The router of :func:`moe_apply` over tokens ``xt`` (S, D):
-    ``probs`` (S, Ep) f32, the top-k ``ids`` and ``weights`` (S, k), each
-    routed slot's ``slot`` in its expert's queue and whether it is kept
-    (``keep``, both (S*k,), token-major), ``cap`` and the aux loss.
+def router_probs(router, xt, cfg: ModelConfig):
+    """The router over tokens ``xt`` (S, D): ``probs`` (S, Ep) f32 and the
+    top-k ``weights`` and ``ids`` (S, k).
 
     The reference's expressions: the router product in f32 (TF32 must be
     off on the card, or routing choices flip), padded experts masked to
     -1e30 before the softmax, ``lax.top_k``'s order (on ties the lower
     expert first: a stable descending sort, which ``torch.topk`` does not
-    promise), slots from an integer cumsum."""
+    promise)."""
     m = cfg.moe
     ep, k = m.n_experts_padded, m.experts_per_token
-    logits = xt.float() @ p["router"].float()                  # (S, Ep)
+    logits = xt.float() @ router.float()                       # (S, Ep)
     if ep != m.n_experts:   # padded experts never win routing
         pad = torch.arange(ep, device=xt.device) >= m.n_experts
         logits = torch.where(pad[None, :], -1e30, logits)
@@ -355,18 +496,33 @@ def moe_route(p, xt, cfg: ModelConfig) -> dict:
     top_w, top_ids = top_w[:, :k], top_ids[:, :k]              # (S, k)
     if m.norm_topk:
         top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    return probs, top_w, top_ids
 
-    # load-balancing auxiliary loss (Switch/GShard form)
-    density = torch.nn.functional.one_hot(top_ids[:, 0], ep).float().mean(dim=0)
-    aux = m.router_aux_coef * m.n_experts * torch.sum(density * probs.mean(dim=0))
 
-    cap = moe_capacity(cfg, xt.shape[0])
-    flat_ids = top_ids.reshape(-1)
-    # position of each (token, slot) within its expert queue
+def moe_aux(probs, top_ids, cfg: ModelConfig):
+    """The load-balancing auxiliary loss (Switch/GShard form)."""
+    m = cfg.moe
+    density = torch.nn.functional.one_hot(top_ids[:, 0], m.n_experts_padded).float().mean(dim=0)
+    return m.router_aux_coef * m.n_experts * torch.sum(density * probs.mean(dim=0))
+
+
+def moe_slots(flat_ids, ep: int):
+    """Each routed slot's position in its expert's queue, token-major, from
+    an integer cumsum."""
     one_hot = torch.nn.functional.one_hot(flat_ids, ep)
-    slot = torch.cumsum(one_hot, dim=0).gather(1, flat_ids[:, None])[:, 0] - 1
+    return torch.cumsum(one_hot, dim=0).gather(1, flat_ids[:, None])[:, 0] - 1
+
+
+def moe_route(p, xt, cfg: ModelConfig) -> dict:
+    """The router of :func:`moe_apply` over tokens ``xt`` (S, D):
+    ``probs`` (S, Ep) f32, the top-k ``ids`` and ``weights`` (S, k), each
+    routed slot's ``slot`` in its expert's queue and whether it is kept
+    (``keep``, both (S*k,), token-major), ``cap`` and the aux loss."""
+    probs, top_w, top_ids = router_probs(p["router"], xt, cfg)
+    cap = moe_capacity(cfg, xt.shape[0])
+    slot = moe_slots(reshape(top_ids, -1), cfg.moe.n_experts_padded)
     return {"probs": probs, "ids": top_ids, "weights": top_w, "slot": slot,
-            "keep": slot < cap, "cap": cap, "aux": aux}
+            "keep": slot < cap, "cap": cap, "aux": moe_aux(probs, top_ids, cfg)}
 
 
 def moe_apply(p, x, cfg: ModelConfig):
@@ -380,28 +536,46 @@ def moe_apply(p, x, cfg: ModelConfig):
     slots, empty ones included.  Kept tokens have unique (expert, slot)
     pairs, so the dispatch is a plain index write; dropped ones are
     written to a spare slot ``cap`` that is cut off, which keeps it free
-    of host syncs and of nondeterministic accumulation."""
+    of host syncs and of nondeterministic accumulation.
+
+    Under an active mesh that has a ``"model"`` axis dividing the padded
+    expert count, ``moe_dispatch="shard_map"`` takes the per-shard
+    dispatch (:mod:`repro_torch.models.moe_shardmap`, local capacity);
+    the aux loss stays global."""
     ep, k = cfg.moe.n_experts_padded, cfg.moe.experts_per_token
     b, t, e = x.shape
     s = b * t
-    xt = x.reshape(s, e)
+    xt = reshape(x, s, e)
+    if cfg.moe_dispatch == "shard_map":
+        from .moe_shardmap import moe_apply_shardmap
+
+        mesh = active_mesh()
+        if mesh is not None and "model" in axis_names(mesh) \
+                and ep % axis_size(mesh, "model") == 0:
+            probs, top_w, top_ids = router_probs(p["router"], xt, cfg)
+            combined = moe_apply_shardmap(p, xt, top_w, top_ids, cfg, mesh)
+            out = reshape(combined, b, t, e)
+            if "shared" in p:
+                out = out + mlp_apply(p["shared"], x, cfg)
+            return out, moe_aux(probs, top_ids, cfg)
     r = moe_route(p, xt, cfg)
     cap, keep, slot = r["cap"], r["keep"], r["slot"]
-    flat_ids, flat_w = r["ids"].reshape(-1), r["weights"].reshape(-1)
+    flat_ids, flat_w = reshape(r["ids"], -1), reshape(r["weights"], -1)
     slot_c = torch.where(keep, slot, 0)
 
     xe = xt.repeat_interleave(k, dim=0)                        # (S*k, D)
     spare = torch.zeros((ep, cap + 1, e), dtype=x.dtype, device=x.device)
     dispatched = spare.index_put((flat_ids, torch.where(keep, slot, cap)), xe)[:, :cap]
+    dispatched = constrain(dispatched, ("experts", None, None))
 
     g = silu(torch.bmm(dispatched, p["wg"]))
     h = g * torch.bmm(dispatched, p["wi"])
-    out_e = torch.bmm(h, p["wo"])                              # (Ep, cap, D)
+    out_e = constrain(torch.bmm(h, p["wo"]), ("experts", None, None))  # (Ep, cap, D)
 
     gathered = out_e[flat_ids, slot_c]                         # (S*k, D)
     gathered = torch.where(keep[:, None], gathered, 0)
-    combined = (gathered * flat_w[:, None].to(gathered.dtype)).reshape(s, k, e).sum(dim=1)
-    out = combined.reshape(b, t, e)
+    combined = reshape(gathered * flat_w[:, None].to(gathered.dtype), s, k, e).sum(dim=1)
+    out = reshape(combined, b, t, e)
     if "shared" in p:
         out = out + mlp_apply(p["shared"], x, cfg)
     return out, r["aux"]

@@ -26,8 +26,14 @@ another device than the one asked for raises; nothing is moved behind
 the caller's back but the host token ids.
 
 An MoE block's aux loss is summed over layers into ``forward``'s second
-output and ``loss_fn``'s loss.  ``attn_impl="blockwise"`` raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+output and ``loss_fn``'s loss.
+
+Under a mesh (DTensor params and inputs inside ``activate_mesh``) the
+same code runs on DTensors: ``param_axes`` and ``serve_state_axes`` give
+every leaf's logical axes, the residual stream and the logits are
+constrained as the reference constrains them, attention and the
+recurrences run on each shard's rows and heads, and ``loss_fn`` picks the
+gold logit with a masked sum where the vocab is sharded.
 """
 
 from __future__ import annotations
@@ -38,11 +44,14 @@ from typing import Any, Mapping
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch._device import resolve_device
 
 from .config import ModelConfig
 from .layers import (
     _heads_out,
+    attention_axes,
     _qkv,
     _sdpa,
     attention_cross,
@@ -53,18 +62,24 @@ from .layers import (
     init_mlp,
     init_moe,
     mlp_apply,
+    mlp_axes,
     moe_apply,
+    moe_axes,
     ones,
     rms_norm,
     self_attention,
 )
+from .sharding import constrain, matmul
 from .recurrent import (
     init_rglru_block,
     init_rwkv6_cmix,
     init_rwkv6_tmix,
     rglru_block,
+    rglru_block_axes,
     rwkv6_cmix,
+    rwkv6_cmix_axes,
     rwkv6_tmix,
+    rwkv6_tmix_axes,
 )
 
 
@@ -78,12 +93,15 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown block_pattern {cfg.block_pattern!r}")
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of the trees of its structure
+    in ``rest`` (a leaf there may be anything that is not a dict or a
+    list, such as a logical-axes tuple or a sharding)."""
     if isinstance(tree, Mapping):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -252,6 +270,106 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
 
 
 # ---------------------------------------------------------------------------
+# logical axes (the sharding rules' input)
+# ---------------------------------------------------------------------------
+
+
+def _block_axes(cfg: ModelConfig) -> dict:
+    if cfg.block_pattern == "rwkv6":
+        return {
+            "norm1": (None,),
+            "tmix": rwkv6_tmix_axes(),
+            "norm2": (None,),
+            "cmix": rwkv6_cmix_axes(),
+        }
+    a = {
+        "norm1": (None,),
+        "attn": attention_axes(cfg),
+        "norm2": (None,),
+    }
+    if cfg.moe is not None:
+        a["moe"] = moe_axes(cfg)
+    else:
+        a["mlp"] = mlp_axes(cfg)
+    if cfg.is_encdec:
+        a["norm_x"] = (None,)
+        a["xattn"] = attention_axes(cfg, cross=True)
+    return a
+
+
+def _rec_tail_axes(cfg: ModelConfig) -> dict:
+    return {
+        "norm1": (None,),
+        "rg": rglru_block_axes(),
+        "norm2": (None,),
+        "mlp": mlp_axes(cfg),
+    }
+
+
+def _griffin_group_axes(cfg: ModelConfig) -> dict:
+    rec = _rec_tail_axes(cfg)
+    return {
+        "rec": [rec, rec],
+        "attn": {
+            "norm1": (None,),
+            "attn": attention_axes(cfg),
+            "norm2": (None,),
+            "mlp": mlp_axes(cfg),
+        },
+    }
+
+
+def _stack_axes(axes_tree):
+    """Prepend the 'layers' logical axis to every leaf's axes tuple."""
+    return tree_map(lambda ax: ("layers", *ax), axes_tree)
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of :func:`init_params`' tree."""
+    axes: dict[str, Any] = {
+        "embed": ("vocab", "embed"),
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if cfg.block_pattern == "griffin":
+        axes["groups"] = _stack_axes(_griffin_group_axes(cfg))
+        if cfg.n_layers % 3:
+            axes["tail"] = _stack_axes(_rec_tail_axes(cfg))
+    else:
+        axes["layers"] = _stack_axes(_block_axes(cfg))
+    if cfg.is_encdec:
+        axes["enc_layers"] = _stack_axes(
+            {
+                "norm1": (None,),
+                "attn": attention_axes(cfg),
+                "norm2": (None,),
+                "mlp": mlp_axes(cfg),
+            }
+        )
+        axes["enc_norm"] = (None,)
+    return axes
+
+
+def serve_state_axes(cfg: ModelConfig, state) -> Any:
+    """Logical axes for every serve-state leaf: (layers, batch, ...) with
+    kv-head sharding where present."""
+
+    def leaf_axes(x):
+        if x.ndim == 5:  # (L, B, S, kv, hd) or rwkv s (L,B,H,hd,hd)
+            if x.shape[-1] == x.shape[-2]:
+                return ("layers", "batch", "heads", None, None)
+            return ("layers", "batch", None, "kv_heads", None)
+        if x.ndim == 4:
+            return ("layers", "batch", None, None)
+        if x.ndim == 3:
+            return ("layers", "batch", None)
+        return tuple([None] * x.ndim)
+
+    return tree_map(leaf_axes, state)
+
+
+# ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
@@ -260,7 +378,7 @@ def _head(params, x, cfg: ModelConfig):
     """Logits in the compute dtype, then f32 (the reference's order)."""
     x = rms_norm_cfg(x, params["final_norm"], cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head).float()
+    return matmul(x, head).float()
 
 
 def _rwkv_block(cfg, lp, h, state=None):
@@ -278,28 +396,60 @@ def _rec_block(cfg, lp, h, state=None):
     return h + mlp_apply(lp["mlp"], rms_norm_cfg(h, lp["norm2"], cfg), cfg), state
 
 
-def _ffn(cfg, lp, h):
-    """An attention block's MLP or MoE -> (h, aux loss, or None without MoE)."""
+def _ffn(cfg, lp, h, sp: bool = False):
+    """An attention block's MLP or MoE -> (h, aux loss, or None without MoE).
+    ``sp``: the residual stream is T-sharded (sequence parallelism)."""
     h2 = rms_norm_cfg(h, lp["norm2"], cfg)
+    if sp:
+        h2 = constrain(h2, ("batch", None, None))          # gather T
     if "moe" in lp:
         mo, aux = moe_apply(lp["moe"], h2, cfg)
-        return h + mo, aux
-    return h + mlp_apply(lp["mlp"], h2, cfg), None
+    else:
+        mo, aux = mlp_apply(lp["mlp"], h2, cfg), None
+    if sp:
+        mo = constrain(mo, ("batch", "seq_sp", None))      # reduce-scatter
+    return h + mo, aux
 
 
 def _attn_block(cfg, lp, h, positions, enc_out=None):
     """An attention block over the whole sequence -> (h, aux or None,
-    its self-attention K/V, its cross-attention K/V or None)."""
+    its self-attention K/V, its cross-attention K/V or None).
+
+    Under sequence parallelism the residual stream and the norms live
+    T-sharded over the model axis; the constraints bracket attention and
+    the MLP with a gather and a reduce-scatter (identities without a
+    mesh)."""
+    sp = cfg.seq_parallel
+    if sp:
+        h = constrain(h, ("batch", "seq_sp", None))
     hin = rms_norm_cfg(h, lp["norm1"], cfg)
+    if sp:
+        hin = constrain(hin, ("batch", None, None))
     q, k, v = _qkv(lp["attn"], hin, cfg, positions)
-    att = self_attention(q, k, v, cfg, window=cfg.attn_window)
-    h = h + _heads_out(att, lp["attn"]["wo"])
+    k = constrain(k, ("batch", None, "kv_heads", None))
+    v = constrain(v, ("batch", None, "kv_heads", None))
+    att = _heads_out(self_attention(q, k, v, cfg, window=cfg.attn_window), lp["attn"]["wo"])
+    if sp:
+        att = constrain(att, ("batch", "seq_sp", None))
+    h = h + att
     xkv = None
     if enc_out is not None:
+        xh = rms_norm_cfg(h, lp["norm_x"], cfg)
+        if sp:
+            xh = constrain(xh, ("batch", None, None))
         xkv = encode_cross_kv(lp["xattn"], enc_out, cfg)
-        h = h + attention_cross(lp["xattn"], rms_norm_cfg(h, lp["norm_x"], cfg), xkv, cfg)
-    h, aux = _ffn(cfg, lp, h)
+        xo = attention_cross(lp["xattn"], xh, xkv, cfg)
+        h = h + (constrain(xo, ("batch", "seq_sp", None)) if sp else xo)
+    h, aux = _ffn(cfg, lp, h, sp)
     return h, aux, {"k": k, "v": v}, xkv
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    """The token embeddings in the compute dtype, batch-sharded under a
+    mesh.  A row lookup (``embedding``): its backward sums a token's
+    rows as DTensor's vocab-sharded lookup does on every torch version."""
+    return constrain(torch.nn.functional.embedding(tokens, params["embed"]).to(cfg.dt),
+                     ("batch", None, None))
 
 
 def _positions(b: int, t: int, dev) -> torch.Tensor:
@@ -395,7 +545,7 @@ def forward(params, tokens, cfg: ModelConfig, frames=None, device=None):
     dev = _device_for(cfg, device, params)
     tokens = _tokens(tokens, dev)
     b, t = tokens.shape
-    x = params["embed"][tokens].to(cfg.dt)
+    x = _embed(params, tokens, cfg)
     positions = _positions(b, t, dev)
     enc_out = _encode(params, _frames(frames, cfg, dev), cfg) if cfg.is_encdec else None
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -424,9 +574,11 @@ def forward(params, tokens, cfg: ModelConfig, frames=None, device=None):
             x, a = block(x, lp)
             if a is not None:
                 aux = aux + a
+    if cfg.seq_parallel:
+        x = constrain(x, ("batch", None, None))
     if cfg.bwd_bf16:
         x = _grad_to_bf16(x)
-    return _head(params, x, cfg), aux
+    return constrain(_head(params, x, cfg), ("batch", None, "vocab")), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig, device=None):
@@ -435,8 +587,15 @@ def loss_fn(params, batch, cfg: ModelConfig, device=None):
     logits, aux = forward(params, batch["tokens"], cfg, batch.get("frames"), device=device)
     labels = _tokens(batch["labels"], logits.device)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = (logz - gold).mean()
+    if isinstance(logits, DTensor):
+        # DTensor cannot gather along the vocab-sharded dim: pick the gold
+        # logit by a masked sum, exact (every other term is +0.0)
+        hit = torch.arange(logits.shape[-1], device=labels.device) == labels[..., None]
+        gold = torch.where(hit, logits, 0.0).sum(dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    # batch-sharded per token, so the mean's gradient stays sharded too
+    nll = constrain(logz - gold, ("batch", None)).mean()
     return nll + aux, {"nll": nll, "aux": aux}
 
 
@@ -495,7 +654,7 @@ def decode_step(params, token, pos: int, state, cfg: ModelConfig, device=None):
 
     Returns (logits (B, V) f32, new_state); ``state`` is left unchanged."""
     dev = _device_for(cfg, device, params, state)
-    x = params["embed"][_tokens(token, dev)].to(cfg.dt)
+    x = _embed(params, _tokens(token, dev), cfg)
     pos = int(pos)
     if cfg.block_pattern == "rwkv6":
         new = []
@@ -554,7 +713,7 @@ def prefill(params, tokens, cfg: ModelConfig, frames=None, device=None):
     dev = _device_for(cfg, device, params)
     tokens = _tokens(tokens, dev)
     b, t = tokens.shape
-    x = params["embed"][tokens].to(cfg.dt)
+    x = _embed(params, tokens, cfg)
     positions = _positions(b, t, dev)
     enc_out = _encode(params, _frames(frames, cfg, dev), cfg) if cfg.is_encdec else None
     if cfg.block_pattern == "rwkv6":
@@ -600,7 +759,9 @@ __all__ = [
     "init_params",
     "init_serve_state",
     "loss_fn",
+    "param_axes",
     "prefill",
+    "serve_state_axes",
     "tree_leaves",
     "tree_map",
     "tree_unflatten",

@@ -16,6 +16,7 @@ import torch
 
 from .config import ModelConfig
 from .layers import dense_init, gelu, ones, rms_norm, sigmoid, silu
+from .sharding import constrain, local_region, matmul, reshape
 
 # ---------------------------------------------------------------------------
 # RWKV6 (Finch)
@@ -49,14 +50,35 @@ def init_rwkv6_tmix(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
     }
 
 
+def rwkv6_tmix_axes() -> dict:
+    return {
+        "x_maa": (None,),
+        "maa": (None, None),
+        "tm_w1": ("embed", None),
+        "tm_w2": (None, None, "embed"),
+        "td_w1": ("embed", None),
+        "td_w2": (None, "embed"),
+        "decay_bias": (None,),
+        "bonus_u": ("heads", None),
+        "wr": ("embed", "mlp"),
+        "wk": ("embed", "mlp"),
+        "wv": ("embed", "mlp"),
+        "wg": ("embed", "mlp"),
+        "wo": ("mlp", "embed"),
+        "ln_scale": (None,),
+    }
+
+
 def _ddlerp(p, x, sx):
     """Data-dependent token-shift mixing (RWKV6's ddlerp)."""
     base = x + sx * p["x_maa"]
-    lora = torch.tanh(base @ p["tm_w1"])
-    lora = lora.reshape(*lora.shape[:-1], 5, _TM_LORA)
-    offs = torch.einsum("btsr,srd->sbtd", lora, p["tm_w2"])  # (5,B,T,D)
+    lora = constrain(torch.tanh(matmul(base, p["tm_w1"])), ("batch", None, None))
+    lora = reshape(lora, *lora.shape[:-1], 5, _TM_LORA)
+    offs = constrain(torch.einsum("btsr,srd->sbtd", lora, p["tm_w2"]),
+                     (None, "batch", None, None))  # (5,B,T,D)
     mixed = x[None] + sx[None] * (p["maa"][:, None, None, :] + offs)
-    return mixed  # order: w,k,v,r,g
+    # split below: keep the five mixes whole on every shard
+    return constrain(mixed, (None, "batch", None, None))  # order: w,k,v,r,g
 
 
 def _rwkv_core_scan(r, k, v, w, u, s0, chunk: int = 1):
@@ -80,6 +102,13 @@ def _rwkv_core_scan(r, k, v, w, u, s0, chunk: int = 1):
     return torch.stack(ys, dim=1), s
 
 
+_BTH = ("batch", None, "heads", None)
+_STATE = ("batch", "heads", None, None)
+#: the WKV loop on each shard's batch rows and heads (no communication).
+_wkv = local_region(_rwkv_core_scan, (_BTH, _BTH, _BTH, _BTH, ("heads", None), _STATE),
+                    (_BTH, _STATE))
+
+
 def rwkv6_tmix(p, x, cfg: ModelConfig, state=None):
     """Full-sequence RWKV6 time-mix. state: None (zeros) or
     {"s": (B,H,hd,hd), "x_prev": (B,D)}. Returns (out, new_state)."""
@@ -95,26 +124,23 @@ def rwkv6_tmix(p, x, cfg: ModelConfig, state=None):
     sx = shifted - x
     xw, xk, xv, xr, xg = _ddlerp(p, x, sx)
 
-    r = (xr @ p["wr"]).reshape(b, t, h, hd)
-    k = (xk @ p["wk"]).reshape(b, t, h, hd)
-    v = (xv @ p["wv"]).reshape(b, t, h, hd)
-    g = silu(xg @ p["wg"])
+    r = reshape(matmul(xr, p["wr"]), b, t, h, hd)
+    k = reshape(matmul(xk, p["wk"]), b, t, h, hd)
+    v = reshape(matmul(xv, p["wv"]), b, t, h, hd)
+    g = silu(matmul(xg, p["wg"]))
     decay = p["decay_bias"].float() + (
-        xw.float() @ p["td_w1"].float()
-    ) @ p["td_w2"].float()
-    w = torch.exp(-torch.exp(decay)).reshape(b, t, h, hd)  # data-dependent decay
+        matmul(matmul(xw.float(), p["td_w1"].float()), p["td_w2"].float()))
+    w = reshape(torch.exp(-torch.exp(decay)), b, t, h, hd)  # data-dependent decay
 
-    y, s_final = _rwkv_core_scan(
-        r.float(), k.float(), v.float(), w, p["bonus_u"].float(), s0,
-        chunk=cfg.rwkv_chunk,
-    )
-    y = y.reshape(b, t, d).to(x.dtype)
+    y, s_final = _wkv(r.float(), k.float(), v.float(), w, p["bonus_u"].float(), s0)
+    y = reshape(y, b, t, d).to(x.dtype)
     # per-head group norm
     y = rms_norm(
-        y.reshape(b, t, h, hd), torch.ones((hd,), dtype=x.dtype, device=x.device),
+        reshape(y, b, t, h, hd), torch.ones((hd,), dtype=x.dtype, device=x.device),
         cfg.norm_eps,
-    ).reshape(b, t, d) * p["ln_scale"]
-    out = (y * g) @ p["wo"]
+    )
+    y = reshape(y, b, t, d) * p["ln_scale"]
+    out = matmul(y * g, p["wo"])
     new_state = {"s": s_final, "x_prev": x[:, -1, :]}
     return out, new_state
 
@@ -131,6 +157,16 @@ def init_rwkv6_cmix(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
     }
 
 
+def rwkv6_cmix_axes() -> dict:
+    return {
+        "mu_k": (None,),
+        "mu_r": (None,),
+        "wk": ("embed", "mlp"),
+        "wv": ("mlp", "embed"),
+        "wr": ("embed", "mlp"),
+    }
+
+
 def rwkv6_cmix(p, x, cfg: ModelConfig, state=None):
     b, _, d = x.shape
     if state is None:
@@ -141,9 +177,9 @@ def rwkv6_cmix(p, x, cfg: ModelConfig, state=None):
     sx = shifted - x
     xk = x + sx * p["mu_k"]
     xr = x + sx * p["mu_r"]
-    k = torch.square(torch.relu(xk @ p["wk"]))
-    kv = k @ p["wv"]
-    out = sigmoid(xr @ p["wr"]) * kv
+    k = torch.square(torch.relu(matmul(xk, p["wk"])))
+    kv = matmul(k, p["wv"])
+    out = sigmoid(matmul(xr, p["wr"])) * kv
     return out, {"x_prev": x[:, -1, :]}
 
 
@@ -166,6 +202,19 @@ def init_rglru_block(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
         "wi": dense_init(generator, (d, d), cfg.dt, **kw),
         "a_param": torch.full((*stack, d), 0.7, dtype=torch.float32, device=device),
         "wo": dense_init(generator, (d, d), cfg.dt, **kw),
+    }
+
+
+def rglru_block_axes() -> dict:
+    return {
+        "wx": ("embed", "mlp"),
+        "wy": ("embed", "mlp"),
+        "conv_w": ("conv", "mlp"),
+        "conv_b": ("mlp",),
+        "wa": ("embed", "mlp"),
+        "wi": ("embed", "mlp"),
+        "a_param": ("mlp",),
+        "wo": ("mlp", "embed"),
     }
 
 
@@ -240,15 +289,21 @@ def _rglru(a_gate, i_gate, x, a_param, h0):
     return h_all, h_all[:, -1, :]
 
 
+_BTD = ("batch", None, "mlp")
+#: the RG-LRU scan on each shard's batch rows and channels.
+_rglru_local = local_region(_rglru, (_BTD, _BTD, _BTD, ("mlp",), ("batch", "mlp")),
+                            (_BTD, ("batch", "mlp")))
+
+
 def rglru_block(p, x, cfg: ModelConfig, state=None):
     """Griffin recurrent block. state: {"h": (B,D) f32, "conv": (B,W-1,D)}."""
-    gate = gelu(x @ p["wy"])
-    xb = x @ p["wx"]
+    gate = gelu(matmul(x, p["wy"]))
+    xb = matmul(x, p["wx"])
     conv_state = None if state is None else state["conv"]
     xb, new_conv = _temporal_conv(xb, p["conv_w"], p["conv_b"], conv_state)
-    a_gate = (xb @ p["wa"]).float()
-    i_gate = sigmoid(xb @ p["wi"]).float()
+    a_gate = matmul(xb, p["wa"]).float()
+    i_gate = sigmoid(matmul(xb, p["wi"])).float()
     h0 = None if state is None else state["h"]
-    h, h_last = _rglru(a_gate, i_gate, xb.float(), p["a_param"], h0)
-    out = (h.to(x.dtype) * gate) @ p["wo"]
+    h, h_last = _rglru_local(a_gate, i_gate, xb.float(), p["a_param"], h0)
+    out = matmul(h.to(x.dtype) * gate, p["wo"])
     return out, {"h": h_last, "conv": new_conv}

@@ -26,7 +26,7 @@ from repro_torch.checkpoint.interop import state_dict_from_numpy
 from repro_torch.models.interop import flatten_params, unflatten_params
 from repro_torch.optim import CompressionState, OptState
 
-from .step import TrainState
+from .step import TrainState, full_tensor
 
 __all__ = ["train_state_dict", "train_state_from_dict", "train_state_from_numpy"]
 
@@ -47,8 +47,10 @@ def _named(state) -> list[tuple[str, object]]:
 
 def train_state_dict(state: TrainState) -> dict[str, torch.Tensor]:
     """The state's leaves under their dotted names (the tensors are the
-    state's own, no copy)."""
-    return dict(_named(state))
+    state's own, no copy).  A DTensor leaf is gathered to its whole value
+    (on a one-rank mesh its local tensor, still no copy), so a sharded
+    state saves the leaves a mesh-less one does."""
+    return {n: full_tensor(t) for n, t in _named(state)}
 
 
 def _subtree(d: Mapping[str, torch.Tensor], prefix: str) -> dict:

@@ -1,8 +1,11 @@
 """Trainer loop: metrics, periodic (async, EC-protected) checkpointing,
 restart-on-failure, straggler accounting.
 
-The port of ``repro.train.trainer`` on one device (``device=``, ``None``
-= CUDA), with an explicit generator seeded from ``TrainerConfig.seed``.
+The port of ``repro.train.trainer`` (``device=``, ``None`` = CUDA), with
+an explicit generator seeded from ``TrainerConfig.seed``.  With a
+``mesh`` the step runs sharded (``make_train_step(mesh=...)``): the state
+is initialized or restored whole and laid out on the mesh by the first
+step, and a save gathers each DTensor leaf under its usual name.
 Its checkpointer has the reference's protocol (``save``, ``save_async``,
 ``restore_latest``); :class:`TrainStateCheckpointer` gives it over the
 port's state-dict ``DRexCheckpointer``, through ``train_state_dict`` and

@@ -497,3 +497,19 @@ def test_prefilter_helpers_equal():
             jpre.domain_slice(order, rack, zone, m, c_j, "x"),
         )
     assert tpre.stats() == jpre.stats()
+
+
+def test_kernel_available_means_built():
+    """Each device scorer module has the reference's ``kernel_available``;
+    True means its device scorer is built for this process: D-Rex SC's and
+    the greedy ones once ``pb_frontier`` is loaded (never here, with no
+    card), D-Rex LB's (torch ops alone) wherever a card is."""
+    import torch
+
+    from repro_torch.kernels import pb_frontier
+
+    for mod in (tsc, tgreedy):
+        assert mod.kernel_available() is pb_frontier.loaded()
+    assert tlb.kernel_available() is torch.cuda.is_available()
+    if not torch.cuda.is_available():
+        assert not any(m.kernel_available() for m in (tsc, tgreedy, tlb))

@@ -497,7 +497,7 @@ def test_decode_past_the_cache_end(pos):
 
 
 #: entry points that reach ``self_attention`` over a prompt, where
-#: ``attn_impl="blockwise"`` (``blockwise_sdpa``) still raises.
+#: ``attn_impl="blockwise"`` takes ``blockwise_sdpa``.
 BLOCKWISE_CALLS = {
     "forward": lambda p, tc, toks, fr: forward(p, toks, tc, frames=fr, device="cpu"),
     "prefill": lambda p, tc, toks, fr: prefill(p, toks, tc, frames=fr, device="cpu"),
@@ -512,14 +512,23 @@ BLOCKWISE_CALLS = {
 @pytest.mark.parametrize("arch", ["qwen3_8b", "recurrentgemma_9b", "qwen3_moe_30b_a3b",
                                   "whisper_tiny"])
 def test_waiting_paths_raise(arch, call):
-    """What is still not ported names its ROADMAP.md item; every config
-    is accepted now."""
+    """``attn_impl="blockwise"`` no longer raises: every entry point that
+    reaches it runs it, in f32 within F32_TOL of the dense path's results
+    (greedy tokens equal)."""
     _, tc = configs(arch)
-    tc = tc.with_(attn_impl="blockwise")
+    tc = tc.with_(dtype="float32", attn_block_q=4, attn_block_kv=4)
     params = init_params(tc, torch.Generator().manual_seed(0), device="cpu")
-    toks = np.zeros((1, 4), np.int32)
-    with pytest.raises(NotImplementedError, match="blockwise_sdpa.*ROADMAP.md Queue 2 a4"):
-        BLOCKWISE_CALLS[call](params, tc, toks, frames_for(tc, b=1))
+    toks = np.random.default_rng(0).integers(0, tc.vocab_size, (1, 8)).astype(np.int32)
+    fr = frames_for(tc, b=1)
+    got = BLOCKWISE_CALLS[call](params, tc.with_(attn_impl="blockwise"), toks, fr)
+    want = BLOCKWISE_CALLS[call](params, tc, toks, fr)
+    leaves = lambda out: [x for x in jax.tree.leaves(out, is_leaf=torch.is_tensor)
+                          if isinstance(x, (torch.Tensor, np.ndarray))]
+    for g, w in zip(leaves(got), leaves(want), strict=True):
+        if call == "generate":
+            assert np.array_equal(np.asarray(g), np.asarray(w))
+        else:
+            assert float((torch.as_tensor(g) - torch.as_tensor(w)).abs().max()) <= F32_TOL
 
 
 def test_entry_points_need_a_card():

@@ -157,8 +157,10 @@ def test_train_step_consumes_state():
 
 
 def test_mesh_waits_for_queue_item_4():
+    """The sharded step is ported (``test_torch_mesh_train.py``); a mesh
+    that is not a ``DeviceMesh`` is refused by the step and the trainer."""
     _, tc = configs("yi_6b")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(tc, AdamWConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(tc, AdamWConfig(), TrainerConfig(), mesh=object(), device="cpu")
