@@ -137,8 +137,28 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    bit-equal, and the restored params serve the same tokens and
    bit-equal logits.  Every launch count is set to 0 just before the
    phase and read just after.
-11. **Timing** of each kernel and its plain version, with CUDA events, at
-   the shapes the main, training, mesh and families paths launched (and, for
+11. **The examples** (``[examples]``): the four programs of
+   ``examples_torch/`` on the card through their own entry points, one at
+   a time.  ``placement_explorer`` with its defaults: its §5 table and
+   batched rows (wall time aside) equal to the same example run with
+   ``--device cpu`` (placements too) and to the reference's values
+   (``EXPLORER_TABLE``, ``EXPLORER_PLACED``), and its ``pb_frontier``
+   launches (none: at its 10 nodes the dispatch rule sends every
+   decision to the oracle).  ``serve_batch`` with its defaults, twice:
+   the same tokens.  ``quickstart --full`` (124,649,472 params, a 1.75 GB ``TrainState``)
+   for its default 200 steps on a one-rank mesh with D-Rex SC checkpoints
+   every 50 steps: every logged metric finite, the restore after nodes 0
+   and 3 fail bit-exact, every save's (K, P, nodes) equal to the CPU
+   oracle's on a copy of the cluster as it stood, and the storage
+   overhead equal to what those placements store for the same leaf sizes;
+   step ms p50, tokens/s, save and restore GB/s, the device peak.
+   ``elastic_failover``: the reference's health and repair numbers
+   (``FAILOVER``), the restore at step 30 with the pipeline at batch 0,
+   training to step 45.  Every launch count is set to 0 just before the
+   phase and read just after; the explorer's CPU run comes after.
+12. **Timing** of each kernel and its plain version, with CUDA events, at
+   the shapes the main, training, mesh, families and examples paths
+   launched (and, for
    ``pb_frontier``, at the decisions-at-scale shape, the committed
    stream's shape and a wide row on the shared-memory variant), with the
    variant and ns per DP step.
@@ -248,6 +268,9 @@ CUTS = [
     "full width, B = 2, T = 16, 8 decode steps, one step's loss and gradients",
     "the MoE configs are served, not checkpointed: saves of 61.1 and 30.3 GB would add "
     "~75-120 s at the main path's ~0.7-0.8 GB/s",
+    "[examples] runs serve_batch at its default arch (yi-6b smoke) only, and holds "
+    "quickstart --full to the CPU through its placements and storage overhead, not "
+    "through a CPU training run of the 124.6M-param model",
 ]
 
 #: the card every phase runs on (a CPU rehearsal of phases 3-7 and 9 at a tiny
@@ -1959,8 +1982,12 @@ def phase_train(seed: int) -> dict:
     resumed = trainer(resumed_ms)
     state, restore_ms = host_ms(resumed.init_or_restore)
     marks.append(("restore", time.perf_counter()))
-    if resumed.start_step != TRAIN_CKPT_EVERY:
-        raise AssertionError(f"restored step {resumed.start_step}, saved {TRAIN_CKPT_EVERY}")
+    if resumed.start_step != TRAIN_CKPT_EVERY or resumed.data.step != 0:
+        raise AssertionError(f"restored step {resumed.start_step} with the data at batch "
+                             f"{resumed.data.step}, saved {TRAIN_CKPT_EVERY}")
+    # As the reference's, the restored pipeline starts at batch 0; the
+    # uninterrupted run's steps 5-6 trained on batches 4-5.
+    resumed.data.step = resumed.start_step
     restored = train_state_dict(state)
     if list(restored) != list(at_save):
         raise AssertionError("the restored TrainState's leaves differ from the saved one's")
@@ -2179,8 +2206,12 @@ def mesh_train(seed: int, reference: dict) -> dict:
     resumed_ms: list = []
     resumed = trainer(resumed_ms, make_local_mesh(1, 1, device=entry_device()))
     state, restore_ms = host_ms(resumed.init_or_restore)
-    if resumed.start_step != TRAIN_CKPT_EVERY:
-        raise AssertionError(f"restored step {resumed.start_step}, saved {TRAIN_CKPT_EVERY}")
+    if resumed.start_step != TRAIN_CKPT_EVERY or resumed.data.step != 0:
+        raise AssertionError(f"restored step {resumed.start_step} with the data at batch "
+                             f"{resumed.data.step}, saved {TRAIN_CKPT_EVERY}")
+    # As the reference's, the restored pipeline starts at batch 0; the
+    # uninterrupted run's steps 5-6 trained on batches 4-5.
+    resumed.data.step = resumed.start_step
     restored = train_state_dict(state)
     if list(restored) != list(at_save):
         raise AssertionError("the restored TrainState's leaves differ from the saved one's")
@@ -2882,7 +2913,322 @@ def phase_families(seed: int) -> dict:
             "frontier_shapes": frontier_shapes}
 
 
-# -- 11. timing ---------------------------------------------------------------
+# -- 11. the examples ---------------------------------------------------------
+
+#: [examples]: the placement explorer's default table and batched rows as
+#: examples/placement_explorer.py prints them (most_used, meva,
+#: random_nines, fill 0.95): stored share, throughput, top (K, P) choices;
+#: placed of 200 and the top reject reason.
+EXPLORER_TABLE = {
+    "drex_sc": ("69.2%", "94.74", "(4, 1)x137, (3, 3)x82, (3, 2)x70"),
+    "drex_lb": ("64.5%", "92.12", "(2, 1)x116, (2, 2)x95, (2, 3)x80"),
+    "greedy_min_storage": ("76.7%", "78.93", "(9, 1)x187, (7, 3)x97, (6, 4)x96"),
+    "greedy_least_used": ("54.4%", "100.57", "(2, 1)x246, (2, 3)x166, (2, 2)x151"),
+    "ec(3,2)": ("60.1%", "104.29", "(3, 2)x647"),
+    "ec(4,2)": ("53.5%", "100.26", "(4, 2)x564"),
+    "ec(6,3)": ("60.1%", "77.14", "(6, 3)x632"),
+    "daos": ("43.5%", "95.62", "(1, 3)x173, (4, 2)x75, (8, 1)x75"),
+}
+EXPLORER_PLACED = {"drex_sc": 200, "drex_lb": 200, "greedy_min_storage": 200,
+                   "greedy_least_used": 200, "ec(3,2)": 139, "ec(4,2)": 128,
+                   "ec(6,3)": 163, "daos": 200}
+#: examples/elastic_failover.py: min group reliability after nodes 0 and 2
+#: fail, chunks rebuilt, repair plans, infeasible plans, min reliability
+#: after the repair; the step restored and the step trained to.
+FAILOVER = {"min_reliability": "0.991160", "repaired_chunks": 57, "repairs_planned": 57,
+            "repairs_failed": 0, "min_reliability_after_repair": "0.999905",
+            "restored_step": 30, "final_step": 45}
+#: the quickstart's size on the card (its --full model, its default steps);
+#: a CPU rehearsal sets EXAMPLES_SMOKE for the reduced model, 10 steps and
+#: the explorer at fill 0.1 (where the reference values are not checked).
+EXAMPLES_QUICKSTART_STEPS = 200
+EXAMPLES_SMOKE = False
+
+
+def load_example(name: str):
+    """The module ``examples_torch/<name>.py``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  ROOT / "examples_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def quiet(fn, *a, **kw) -> tuple:
+    """``(fn(*a, **kw), its stdout)``."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*a, **kw)
+    return result, out.getvalue()
+
+
+def explorer_rows(result: dict) -> dict:
+    """The explorer's table and batched rows without the wall-time columns."""
+    return {"table": [(r["algorithm"], f"{r['stored_fraction']:.1%}",
+                       f"{r['throughput_mbps']:.2f}", r["top"]) for r in result["table"]],
+            "batched": [(r["algorithm"], r["caps"], r["placed"], r["n"], r["top_reject"],
+                         r["placements"]) for r in result["batched"]],
+            "n_items": result["n_items"]}
+
+
+def examples_explorer() -> dict:
+    """placement_explorer with its defaults on the card: equal, wall time
+    aside, to its run on the CPU and to the reference's values."""
+    from repro_torch.kernels import pb_frontier
+
+    ex = load_example("placement_explorer")
+    fill = 0.1 if EXAMPLES_SMOKE else 0.95
+    before = pb_frontier.launches
+    t0 = time.perf_counter()
+    card, printed = quiet(ex.explore, fill=fill, device=entry_device())
+    card_s = time.perf_counter() - t0
+    launches = pb_frontier.launches - before
+    for line in printed.splitlines():
+        log("[examples] explorer | " + line)
+    got = explorer_rows(card)
+    if not EXAMPLES_SMOKE:
+        table = {name: (stored, thr, ", ".join(f"{tuple(kp)}x{c}" for kp, c in top))
+                 for name, stored, thr, top in got["table"]}
+        if table != EXPLORER_TABLE:
+            raise AssertionError(f"[examples] explorer table {table} differs from the "
+                                 f"reference's {EXPLORER_TABLE}")
+        placed = {row[0]: row[2] for row in got["batched"]}
+        if placed != EXPLORER_PLACED or got["n_items"] != 1055:
+            raise AssertionError(f"[examples] explorer placed {placed} of "
+                                 f"{got['n_items']} items, the reference {EXPLORER_PLACED}")
+    return {"fill": fill, "n_items": got["n_items"], "card": card, "card_s": card_s,
+            "pb_frontier_launches": launches,
+            "equal_reference_values": not EXAMPLES_SMOKE}
+
+
+def explorer_cpu_check(run: dict) -> dict:
+    """The explorer again with ``--device cpu``: the same table, batched
+    rows and placements."""
+    ex = load_example("placement_explorer")
+    t0 = time.perf_counter()
+    cpu, _ = quiet(ex.explore, fill=run["fill"], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card = run.pop("card")
+    if explorer_rows(card) != explorer_rows(cpu):
+        raise AssertionError("[examples] the explorer on the card differs from the CPU's")
+    return {"equal_cpu": True, "cpu_s": cpu_s,
+            "ms_per_item_card": {r["algorithm"]: r["ms_per_item"] for r in card["batched"]},
+            "ms_per_item_cpu": {r["algorithm"]: r["ms_per_item"] for r in cpu["batched"]}}
+
+
+def examples_serve() -> dict:
+    """serve_batch with its defaults, twice: the same tokens."""
+    ex = load_example("serve_batch")
+    argv = [] if DEV == "cuda" else ["--device", DEV]
+    first, printed = quiet(ex.main, argv)
+    second, _ = quiet(ex.main, argv)
+    for line in printed.splitlines():
+        log("[examples] serve | " + line)
+    if not np.array_equal(first["tokens"], second["tokens"]):
+        raise AssertionError("[examples] serve_batch gave other tokens the second time")
+    return {"arch": first["arch"], "tokens_shape": list(first["tokens"].shape),
+            "tokens_equal_twice": True, "new": first["new"], "wall_s": first["wall_s"],
+            "decode_tokens_per_s": [first["decode_tokens_per_s"],
+                                    second["decode_tokens_per_s"]]}
+
+
+def examples_quickstart() -> dict:
+    """quickstart --full with its default steps on the card: every logged
+    metric finite, the drill bit-exact, every save's (K, P, nodes) equal
+    to the CPU oracle's on a copy of the cluster as it stood, the
+    overhead equal to what the oracle's placements give for the same
+    leaf sizes; step ms, tokens/s, save and restore GB/s, device peak."""
+    from repro_torch.core import DataItem, PlacementEngine, shapes
+    from repro_torch.ec import ECCodec
+    from repro_torch.kernels import ops
+
+    ex = load_example("quickstart")
+    full, steps = not EXAMPLES_SMOKE, 10 if EXAMPLES_SMOKE else EXAMPLES_QUICKSTART_STEPS
+    step_ms: list = []
+    calls: list = []
+    saves: list = []
+    save_shapes: set = set()
+
+    class Trainer(ex.Trainer):
+        """Each step timed (``timed_steps``)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            timed_steps(self, step_ms)
+
+    class Checkpointer(ex.TrainStateCheckpointer):
+        """Records every save's ``place_many`` with a copy of the cluster
+        as it stood, and times each async save: ``stall_s`` (the call,
+        which encodes) and ``save_s`` (until the last chunk is on the
+        fabric); after each, the rs_bitmatmul shapes issued so far (a
+        save encodes on the calling thread, and nothing before it in
+        [examples] codes bytes)."""
+
+        def __init__(self, checkpointer, like):
+            super().__init__(checkpointer, like)
+            engine = checkpointer.engine
+            place_many = engine.place_many
+
+            def recording(items, **kw):
+                view = engine.cluster.copy()
+                records = place_many(items, **kw)
+                calls.append((view, list(items), records))
+                return records
+
+            engine.place_many = recording
+
+        def save_async(self, state, step):
+            sync()
+            t0 = time.perf_counter()
+            fut = super().save_async(state, step)
+            rec = {"step": step, "stall_s": time.perf_counter() - t0}
+            saves.append(rec)
+            save_shapes.update(shapes.issued_shapes(ops.CENSUS_KERNEL))
+            fut.add_done_callback(
+                lambda f: rec.setdefault("save_s", time.perf_counter() - t0))
+            return fut
+
+    ex.Trainer, ex.TrainStateCheckpointer = Trainer, Checkpointer
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result, printed = quiet(ex.quickstart, full, steps, device=entry_device())
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
+    for line in printed.splitlines():
+        log("[examples] quickstart | " + line)
+    for h in result["history"]:
+        if not all(np.isfinite(h[k]) for k in ("loss", "nll", "grad_norm", "lr")):
+            raise AssertionError(f"[examples] quickstart step {h['step']}: not finite: {h}")
+    if not result["bit_exact"]:
+        raise AssertionError("[examples] quickstart's drill did not restore bit-exactly")
+
+    # Every save's placements against the CPU oracle on the cluster as it
+    # stood, and the bytes those placements store.
+    t1 = time.perf_counter()
+    oracle_stored, kp = 0, collections.Counter()
+    for view, items, records in calls:
+        want = PlacementEngine(view, oracle_scheduler("drex_sc"), auto_commit=False).place_many(
+            [DataItem(it.item_id, it.size_mb, it.arrival_time, it.delta_t_days,
+                      it.reliability_target) for it in items])
+        got = [(r.placement.k, r.placement.p, tuple(r.placement.node_ids)) for r in records]
+        if got != [(r.placement.k, r.placement.p, tuple(r.placement.node_ids)) for r in want]:
+            raise AssertionError("[examples] a quickstart save's placements differ from the "
+                                 "CPU oracle's")
+        for it, r in zip(items, want):
+            bucket = round(it.size_mb * 1e6)
+            oracle_stored += (r.placement.k + r.placement.p) * ECCodec(
+                r.placement.k, r.placement.p, device="cpu").chunk_len(bucket)
+        kp.update(f"({k},{p})" for k, p, _ in got)
+    oracle_overhead = oracle_stored / result["stats"]["bytes_raw"]
+    if f"{oracle_overhead:.6f}" != f"{result['overhead']:.6f}":
+        raise AssertionError(f"[examples] quickstart overhead {result['overhead']} against "
+                             f"the CPU oracle's placements' {oracle_overhead}")
+    gb = result["state_bytes"] / 1e9
+    p50 = statistics.median(step_ms)
+    return {
+        "model": result["model"], "params": result["params"], "steps": steps,
+        "state_bytes": result["state_bytes"], "ckpt_every": result["ckpt_every"],
+        "history": [{k: h[k] for k in ("step", "loss", "nll", "grad_norm", "lr")}
+                    for h in result["history"]],
+        "step_ms_p50": p50, "tokens_per_s": result["tokens_per_step"] / (p50 / 1e3),
+        "step_ms_max": max(step_ms),
+        "saves": [{**s, "GBps": gb / s["save_s"]} for s in saves],
+        "save_GBps_p50": statistics.median(gb / s["save_s"] for s in saves),
+        "groups_per_save": [len(items) for _, items, _ in calls],
+        "kp_histogram": dict(kp), "min_parity": min(int(k.split(",")[1][:-1]) for k in kp),
+        "placements_equal_cpu_oracle": True,
+        "restored_step": result["restored_step"], "bit_exact": True,
+        "restore_s": result["restore_s"], "restore_GBps": gb / result["restore_s"],
+        "overhead": result["overhead"], "overhead_cpu_oracle": oracle_overhead,
+        "encode_s": result["stats"]["encode_s"], "place_s": result["stats"]["place_s"],
+        "device_peak_GB": peak, "run_s": run_s, "oracle_check_s": time.perf_counter() - t1,
+        "_save_shapes": sorted(save_shapes),
+    }
+
+
+def examples_failover() -> dict:
+    """elastic_failover on the card: the reference's repair numbers, the
+    restore at step 30 with the pipeline at batch 0, training to 45."""
+    ex = load_example("elastic_failover")
+    result, printed = quiet(ex.failover, device=entry_device())
+    for line in printed.splitlines():
+        log("[examples] failover | " + line)
+    got = {k: result[k] for k in FAILOVER}
+    for k in ("min_reliability", "min_reliability_after_repair"):
+        got[k] = f"{got[k]:.6f}"
+    if got != FAILOVER or result["data_step_after_restore"] != 0:
+        raise AssertionError(f"[examples] elastic_failover gave {got}, data step "
+                             f"{result['data_step_after_restore']}; the reference {FAILOVER}")
+    for h in result["history"] + result["resumed_history"]:
+        if not all(np.isfinite(h[k]) for k in ("loss", "nll", "grad_norm", "lr")):
+            raise AssertionError(f"[examples] failover step {h['step']}: not finite: {h}")
+    return {**got, "data_step_after_restore": 0,
+            "losses": [h["loss"] for h in result["history"] + result["resumed_history"]]}
+
+
+def phase_examples() -> dict:
+    """[examples]: the four examples of ``examples_torch/`` on the card,
+    one at a time, through their own entry points.  Every launch count is
+    set to 0 just before and read just after; the CPU run the explorer is
+    held to comes after."""
+    from repro_torch.core import shapes
+    from repro_torch.kernels import ops, pb_frontier, rs_bitmatmul
+
+    t_phase = time.perf_counter()
+    shapes.reset()
+    ops.reset_launch_stats()
+    rs_bitmatmul.reset_launches()
+    pb_frontier.reset_launches()
+    explorer = examples_explorer()
+    marks = [("explorer", time.perf_counter())]
+    serve = examples_serve()
+    marks.append(("serve", time.perf_counter()))
+    quick = examples_quickstart()
+    save_shapes = quick.pop("_save_shapes")
+    marks.append(("quickstart", time.perf_counter()))
+    failover = examples_failover()
+    marks.append(("failover", time.perf_counter()))
+    launches = rs_bitmatmul.launches
+    per_kind = ops.launch_stats()
+    frontier_launches = pb_frontier.launches
+    issued = sorted(shapes.issued_shapes(ops.CENSUS_KERNEL))
+    frontier_shapes = sorted(shapes.issued_shapes("pb_frontier"))
+    # The explorer's 10 nodes are below D-Rex SC's and GreedyMinStorage's
+    # KERNEL_MIN_NODES, and its engines commit each decision before the
+    # next is scored (one item a place_batch call): the dispatch rule
+    # sends every decision to the oracle there, so its count may be 0.
+    if DEV == "cuda" and (per_kind["encode"] == 0 or per_kind["decode"] == 0
+                          or frontier_launches == 0
+                          or launches != per_kind["encode"] + per_kind["decode"]):
+        raise AssertionError(f"[examples] skipped a kernel: {per_kind}, {launches} "
+                             f"rs_bitmatmul and {frontier_launches} pb_frontier launches")
+    explorer.update(explorer_cpu_check(explorer))
+    marks.append(("explorer_cpu", time.perf_counter()))
+    report = {
+        "explorer": explorer, "serve": serve, "quickstart": quick, "failover": failover,
+        "launches": {"rs_bitmatmul": launches, "encode": per_kind["encode"],
+                     "decode": per_kind["decode"], "pb_frontier": frontier_launches,
+                     "pb_frontier_explorer": explorer["pb_frontier_launches"]},
+        "rs_bitmatmul_shapes": [[r8 // 8, k8 // 8, n * bb] for r8, k8, n, bb, _ in issued],
+        "pb_frontier_shapes": [list(x) for x in frontier_shapes],
+    }
+    report["phase_parts_s"] = {name: t - prev for (_, prev), (name, t)
+                               in zip([("start", t_phase)] + marks, marks)}
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("[examples] " + json.dumps(report))
+    return {"report": report, "issued": issued, "save_shapes": save_shapes,
+            "launches": launches, "frontier_launches": frontier_launches,
+            "frontier_shapes": frontier_shapes}
+
+
+# -- 12. timing ---------------------------------------------------------------
 
 
 def by_shape(issued_by_path: dict) -> dict:
@@ -2895,8 +3241,8 @@ def by_shape(issued_by_path: dict) -> dict:
 
 
 def phase_timing(issued_by_path: dict, seed: int) -> list[dict]:
-    """rs_bitmatmul against its plain version at every (R, K, B) the main,
-    training and families paths launched: byte-equal, then timed (median of
+    """rs_bitmatmul against its plain version at every (R, K, B) the paths
+    in ``issued_by_path`` launched: byte-equal, then timed (median of
     CUDA-event runs)."""
     from repro_torch.ec import gf256
     from repro_torch.kernels import ref, rs_bitmatmul
@@ -2955,9 +3301,9 @@ WIDE_DAYS = 7.0
 
 
 def phase_frontier_timing(shapes_by_path: dict) -> list[dict]:
-    """pb_frontier against its plain version at the shapes the main and
-    training paths launched (their saves' own fail probabilities and
-    target), at the
+    """pb_frontier against its plain version at the shapes the paths in
+    ``shapes_by_path`` launched (on the most_used node set's fail
+    probabilities over 30 days, target 0.999), at the
     decisions-at-scale shape (64 items, the freest rung(1025) nodes of the
     10,000-node cluster), at the committed stream's shape (one item) and on
     a wide row (all 10,000 nodes, the shared-memory variant): equal, then
@@ -3051,19 +3397,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     families = timed("families", phase_families, args.seed)
     torch.cuda.empty_cache()
+    examples = timed("examples", phase_examples)
+    torch.cuda.empty_cache()
     rows = timed("timing", phase_timing,
                  {"main": main_run["issued"], "train": train_run["issued"],
-                  "mesh": mesh_run["issued"], "families": families["issued"]}, args.seed)
+                  "mesh": mesh_run["issued"], "families": families["issued"],
+                  "examples": examples["issued"]}, args.seed)
     frows = timed("frontier_timing", phase_frontier_timing,
                   {"main": main_run["frontier_shapes"], "train": train_run["frontier_shapes"],
                    "mesh": mesh_run["frontier_shapes"],
-                   "families": families["frontier_shapes"]})
+                   "families": families["frontier_shapes"],
+                   "examples": examples["frontier_shapes"]})
     # The headline shape is the main path's save's widest encode wave.
     save = {(r8 // 8, k8 // 8, n * bb) for r8, k8, n, bb, _ in main_run["save_shapes"]}
     head = max((x for x in rows if (x["R"], x["K"], x["B"]) in save and "main" in x["paths"]),
                key=lambda x: x["B"])
     fhead = max((x for x in frows if "main" in x["at"].split("+")),
                 key=lambda x: x["B"] * x["S"] * x["L"])
+    # The examples' headline: the quickstart's widest save wave (R >= 2).
+    qsave = {(r8 // 8, k8 // 8, n * bb) for r8, k8, n, bb, _ in examples["save_shapes"]}
+    ehead = max((x for x in rows if (x["R"], x["K"], x["B"]) in qsave
+                 and "examples" in x["paths"]), key=lambda x: x["R"] * x["B"])
     kernels = [
         {
             "name": "rs_bitmatmul",
@@ -3078,6 +3432,7 @@ def main() -> int:
                 "train": train_run["launches"],
                 "mesh": mesh_run["launches"],
                 "families": families["launches"],
+                "examples": examples["launches"],
             },
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "matches_plain": True,
@@ -3087,6 +3442,8 @@ def main() -> int:
             "bound_by": head["bound_by"],
             "library_ms": None,
             "shape": {"R": head["R"], "K": head["K"], "B": head["B"]},
+            "examples_widest_save": {k: ehead[k] for k in (
+                "R", "K", "B", "ms", "plain_ms", "bound_ms", "bound_by")},
             "shapes": rows,
         },
         {
@@ -3103,6 +3460,7 @@ def main() -> int:
                 "train": train_run["frontier_launches"],
                 "mesh": mesh_run["frontier_launches"],
                 "families": families["frontier_launches"],
+                "examples": examples["frontier_launches"],
                 "sim_at_scale": sum(sim[f"sim_at_scale/{s}"]["pb_frontier_launches"]
                                     for s in (0, 1)),
                 "serve_lane": sum(r["pb_frontier_launches"] for r in serve.values()
@@ -3114,7 +3472,8 @@ def main() -> int:
                 path: sorted({frontier_variant(B * S, W) for B, S, _, _, W, _ in run_shapes})
                 for path, run_shapes in (("train", train_run["frontier_shapes"]),
                                          ("mesh", mesh_run["frontier_shapes"]),
-                                         ("families", families["frontier_shapes"]))}},
+                                         ("families", families["frontier_shapes"]),
+                                         ("examples", examples["frontier_shapes"]))}},
             "max_abs_err": max(x["max_abs_err"] for x in frows),
             "matches_plain": True,
             "ms": fhead["ms"],
@@ -3141,6 +3500,12 @@ def main() -> int:
         "families": {**families["report"]["served"], "restore": {
             a: {f: r[f] for f in ("save_GBps", "restore_GBps", "groups")}
             for a, r in families["restores"].items()}},
+        "examples": {"quickstart": {f: examples["report"]["quickstart"][f] for f in (
+            "step_ms_p50", "tokens_per_s", "save_GBps_p50", "restore_GBps", "device_peak_GB",
+            "overhead", "kp_histogram")}, "failover": examples["report"]["failover"],
+            "launches": examples["report"]["launches"],
+            "phase_parts_s": examples["report"]["phase_parts_s"],
+            "phase_s": examples["report"]["phase_s"]},
         "scale": {
         k: {f: v[f] for f in ("batch_disagree", "committed_disagree",
                               "batch_ms_per_decision_card",

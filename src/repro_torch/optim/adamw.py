@@ -30,6 +30,7 @@ __all__ = [
     "adamw_init",
     "adamw_update",
     "clip_by_global_norm",
+    "opt_state_axes",
 ]
 
 
@@ -62,6 +63,11 @@ def adamw_init(params) -> OptState:
     dev = tree_leaves(params)[0].device
     return OptState(torch.zeros((), dtype=torch.int32, device=dev),
                     zeros(params), zeros(params), master)
+
+
+def opt_state_axes(axes_tree) -> OptState:
+    """Logical axes for the optimizer state (moments/master mirror params)."""
+    return OptState(step=(), mu=axes_tree, nu=axes_tree, master=axes_tree)
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

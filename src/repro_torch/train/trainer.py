@@ -11,10 +11,11 @@ Its checkpointer has the reference's protocol (``save``, ``save_async``,
 port's state-dict ``DRexCheckpointer``, through ``train_state_dict`` and
 ``train_state_from_dict``.
 
-One difference from the reference: after a restore at step ``s`` the
-data pipeline resumes at batch ``s``, so a resumed run trains on the
-batches the uninterrupted run did (the reference's pipeline starts again
-at batch 0).
+As in the reference, a restore at step ``s`` restores the state and the
+step but not the data pipeline, which starts again at batch 0.  A caller
+that wants the resumed run on the uninterrupted run's batches sets the
+pipeline's counter after the restore:
+``trainer.data.step = trainer.start_step``.
 """
 
 from __future__ import annotations
@@ -111,7 +112,6 @@ class Trainer:
             if restored is not None:
                 state, step = restored
                 self.start_step = step
-                self.data.step = step
                 print(f"[train] restored checkpoint at step {step}", flush=True)
                 return state
         self.start_step = 0

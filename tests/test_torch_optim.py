@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs as jconfigs
+from repro.models import param_axes as j_param_axes
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_init as j_init
 from repro.optim import adamw_update as j_update
@@ -28,8 +30,11 @@ from repro.optim import clip_by_global_norm as j_clip
 from repro.optim import compress_decompress as j_compress
 from repro.optim import compression_init as j_comp_init
 from repro.optim.adamw import _schedule as j_schedule
+from repro.optim.adamw import opt_state_axes as j_opt_state_axes
 
+import repro_torch.configs as tconfigs
 from repro_torch.models.interop import params_from_numpy
+from repro_torch.models.model import param_axes
 from repro_torch.optim import (
     AdamWConfig,
     OptState,
@@ -39,7 +44,7 @@ from repro_torch.optim import (
     compress_decompress,
     compression_init,
 )
-from repro_torch.optim.adamw import _schedule
+from repro_torch.optim.adamw import _schedule, opt_state_axes
 
 ADAMW_REL = 1e-6
 
@@ -246,3 +251,14 @@ class TestCompression:
         amax = float(g["x"].abs().max())
         err = float((gq["x"] - g["x"]).abs().max())
         assert err <= amax / 127.0 + 1e-6
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_opt_state_axes_match_reference(arch):
+    """The moments and the master copy mirror the param axes; the step has
+    none.  Held on all ten configs' full-size ``param_axes``."""
+    got = opt_state_axes(param_axes(tconfigs.get_config(arch)))
+    want = j_opt_state_axes(j_param_axes(jconfigs.get_config(arch)))
+    assert got.step == want.step == ()
+    for field in ("mu", "nu", "master"):
+        assert getattr(got, field) == getattr(want, field), field

@@ -219,7 +219,10 @@ def test_trainer_resumes_bit_exactly_after_a_node_loss():
 
     resumed = _resume_setup(adapter)
     state = resumed.init_or_restore()
-    assert resumed.start_step == 4 and resumed.data.step == 4
+    assert resumed.start_step == 4 and resumed.data.step == 0
+    # As the reference's, the restored pipeline starts at batch 0; steps
+    # 5-6 of the uninterrupted run trained on batches 4-5.
+    resumed.data.step = resumed.start_step
     _assert_bit_equal(_clone(state), at4)
     _assert_bit_equal(_clone(resumed.run(state)), final)
     assert [h["step"] for h in resumed.history] == [5, 6]
@@ -227,6 +230,65 @@ def test_trainer_resumes_bit_exactly_after_a_node_loss():
         want = straight.history[h["step"] - 1]
         assert {k: h[k] for k in ("loss", "nll", "grad_norm", "lr")} == {
             k: want[k] for k in ("loss", "nll", "grad_norm", "lr")}
+    ck.close()
+
+
+def test_trainer_resumes_as_the_reference_does():
+    """Both trainers from the same f32 state (the reference's, carried
+    across) to a save at step 4, a node lost, a restore and steps 5-6:
+    each restored pipeline starts at batch 0, as the reference's does, and
+    the resumed histories agree within TRAINER_REL (grad_norm within
+    TRAINER_NORM_REL)."""
+    jc, tc = configs("rwkv6_1_6b", dtype="float32")
+    opt, dkw = dict(lr=5e-3, warmup_steps=2), dict(vocab_size=jc.vocab_size, seq_len=16,
+                                                     global_batch=2, seed=3)
+    tkw = dict(log_every=1, ckpt_every=4, seed=3)
+    init = train_state_from_numpy(_np_state(j_state(jc, jax.random.PRNGKey(3))), device="cpu")
+
+    jfabric = JFabric(j_node_set("most_used", capacity_scale=1e-4))
+    jck = JCheckpointer(jfabric, "drex_sc", JPolicy(item_mb=0.1))
+    jlike = j_state(jc, jax.random.PRNGKey(0))
+
+    class JAdapter:
+        def save(self, st, step): jck.save(st, step)
+        def save_async(self, st, step): return jck.save_async(st, step)
+        def restore_latest(self, _): return jck.restore_latest(jlike)
+
+    fabric = StorageFabric(make_node_set("most_used", capacity_scale=1e-4))
+    ck = DRexCheckpointer(fabric, "drex_sc", CheckpointPolicy(item_mb=0.1), device="cpu")
+    adapter = TrainStateCheckpointer(ck, init_train_state(tc, torch.Generator(), device="meta"))
+
+    def both(steps):
+        j = JTrainer(jc, JAdamWConfig(**opt), JTrainerConfig(steps=steps, **tkw),
+                     data_cfg=JDataConfig(**dkw), checkpointer=JAdapter(),
+                     log_fn=lambda s, m: None)
+        t = Trainer(tc, AdamWConfig(**opt), TrainerConfig(steps=steps, **tkw),
+                    data_cfg=DataConfig(**dkw), checkpointer=adapter,
+                    log_fn=lambda s, m: None, device="cpu")
+        return j, t
+
+    def agree(jhist, thist):
+        assert [h["step"] for h in thist] == [h["step"] for h in jhist]
+        for a, b in zip(jhist, thist):
+            for k in ("loss", "nll", "lr"):
+                assert abs(a[k] - b[k]) <= TRAINER_REL * abs(a[k]), (a["step"], k)
+            assert abs(a["grad_norm"] - b["grad_norm"]) <= TRAINER_NORM_REL * a["grad_norm"]
+
+    j, t = both(4)
+    j.run(j_state(jc, jax.random.PRNGKey(3)))
+    t.run(init)
+    agree(j.history, t.history)
+    jfabric.fail_node(0)
+    fabric.fail_node(0)
+
+    j, t = both(6)
+    jstate, tstate = j.init_or_restore(), t.init_or_restore()
+    assert j.start_step == t.start_step == 4
+    assert j.data.step == t.data.step == 0
+    j.run(jstate)
+    t.run(tstate)
+    assert [h["step"] for h in t.history] == [5, 6]
+    agree(j.history, t.history)
     ck.close()
 
 
