@@ -13,8 +13,6 @@ again at batch 0.
 import argparse
 import sys
 
-import torch
-
 sys.path.insert(0, "src")
 
 from repro_torch._device import resolve_device
@@ -23,6 +21,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import DataConfig
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.optim import AdamWConfig
+from repro_torch.prng import PRNGKey
 from repro_torch.storage import make_node_set
 from repro_torch.train import (Trainer, TrainerConfig, TrainStateCheckpointer,
                                init_train_state, reshard_state)
@@ -38,7 +37,7 @@ def failover(*, device=None, steps: int = 30, ckpt_every: int = 10, resume_to: i
     ck = DRexCheckpointer(fabric, "drex_sc",
                           CheckpointPolicy(item_mb=item_mb, reliability_target=0.9999),
                           device=dev)
-    checkpointer = TrainStateCheckpointer(ck, init_train_state(cfg, torch.Generator(),
+    checkpointer = TrainStateCheckpointer(ck, init_train_state(cfg, PRNGKey(0),
                                                                device="meta"))
 
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch)

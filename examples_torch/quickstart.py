@@ -29,6 +29,7 @@ from repro_torch.data import DataConfig
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig
+from repro_torch.prng import PRNGKey
 from repro_torch.storage import make_node_set
 from repro_torch.train import (Trainer, TrainerConfig, TrainStateCheckpointer,
                                init_train_state, train_state_dict)
@@ -67,7 +68,7 @@ def quickstart(full: bool = False, steps: int = 200, *, device=None,
                          retention_days=365.0),
         device=dev,
     )
-    checkpointer = TrainStateCheckpointer(ck, init_train_state(cfg, torch.Generator(),
+    checkpointer = TrainStateCheckpointer(ck, init_train_state(cfg, PRNGKey(0),
                                                                device="meta"))
 
     ckpt_every = min(50, max(10, steps // 4))

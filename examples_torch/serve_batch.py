@@ -4,8 +4,9 @@ configs).
 
 The PyTorch counterpart of ``examples/serve_batch.py``, with the same
 flags, defaults, prompts (``np.random.default_rng(0)``) and printed
-lines; the params come from a ``torch.Generator`` seeded with 0 on
-``--device`` (the default is the GPU).
+lines; the params come from ``PRNGKey(0)`` as the reference's do, drawn
+on ``--device`` (the default is the GPU), so the f32 tokens are the
+reference's.
 
     python examples_torch/serve_batch.py --arch yi-6b --batch 4 [--device cpu]
 """
@@ -15,12 +16,12 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 sys.path.insert(0, "src")
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.prng import PRNGKey
 from repro_torch.models import init_params
 from repro_torch.serve import ServeConfig, ServingEngine
 
@@ -66,7 +67,7 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=True)  # reduced config
-    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    params = init_params(cfg, PRNGKey(0), device=dev)
     return serve(cfg, params, args.batch, args.prompt_len, args.new_tokens,
                  args.temperature, device=dev)
 

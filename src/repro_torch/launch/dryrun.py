@@ -58,6 +58,7 @@ from repro_torch.models.sharding import (
     tree_shardings,
 )
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.prng import PRNGKey
 from repro_torch.roofline import RooflineTerms, TraceStats, count_fn_flops, model_flops_for
 from repro_torch.train import TrainState, make_train_step, train_state_shardings
 from repro_torch.train.step import batch_shardings
@@ -124,7 +125,7 @@ def _fake(like: torch.Tensor) -> torch.Tensor:
 
 
 def _train_args(cfg, mesh, specs, sharded: bool):
-    shapes = init_params(cfg, torch.Generator(), device="meta")
+    shapes = init_params(cfg, PRNGKey(0), device="meta")
     opt = adamw_init(shapes)
     state = TrainState(shapes, opt, None)
     if not sharded:
@@ -148,7 +149,7 @@ def _cell_program(cfg, spec, specs, mesh, sharded: bool):
         step = make_train_step(cfg, AdamWConfig(), mesh if sharded else None)
         return (lambda: step(state, batch)), tree_leaves(state.params) + [
             *tree_leaves(list(state.opt)), *batch.values()]
-    pshapes = init_params(cfg, torch.Generator(), device="meta")
+    pshapes = init_params(cfg, PRNGKey(0), device="meta")
     if sharded:
         params = tree_map(_fake_dtensor, pshapes, tree_shardings(param_axes(cfg), pshapes, mesh))
     else:

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import argparse
 
-import torch
 import torch.distributed as dist
 
 from repro_torch._device import resolve_device
@@ -24,6 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import DataConfig
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.optim import AdamWConfig
+from repro_torch.prng import PRNGKey
 from repro_torch.storage import make_node_set
 from repro_torch.train import Trainer, TrainerConfig, TrainStateCheckpointer, init_train_state
 
@@ -57,7 +57,7 @@ def main(argv=None) -> None:
         fabric = StorageFabric(make_node_set("most_used", capacity_scale=1e-4))
         ck = DRexCheckpointer(fabric, args.ckpt_scheduler, CheckpointPolicy(item_mb=4.0),
                               device=dev)
-        like = init_train_state(cfg, torch.Generator(), args.compression, device="meta")
+        like = init_train_state(cfg, PRNGKey(args.seed), args.compression, device="meta")
         checkpointer = TrainStateCheckpointer(ck, like)
 
     trainer = Trainer(

@@ -4,7 +4,9 @@ The port of ``repro.models.layers``: the dense and local-window GQA
 attention (self, ring-buffer decode and cross), the MLP variants and the
 capacity-bounded top-k MoE.  Params are nested dicts of tensors;
 ``init_*`` builds them, stacked along leading ``stack`` dims (the layer
-axis), from an explicit ``torch.Generator``.
+axis), from ``jax.random``-style keys (:mod:`repro_torch.prng`): one key
+a slice of the stack, split as the reference splits them, so every leaf
+holds the reference's draws.
 
 Every apply function mirrors the JAX expression op for op, in the same
 dtypes, so the rounding points are the reference's: the compute dtype
@@ -32,6 +34,8 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import prng
+
 from .config import ModelConfig
 from .sharding import (
     active_mesh,
@@ -48,21 +52,20 @@ from .sharding import (
 # ---------------------------------------------------------------------------
 
 
-def dense_init(generator: torch.Generator, shape, dtype, in_axis=0, *,
-               device, stack=()) -> torch.Tensor:
-    """N(0, 1/fan_in) in f32, cast to ``dtype``; ``fan_in`` is ``shape``'s
-    ``in_axis`` extent (or the product over a tuple of axes).  Leading
-    ``stack`` dims hold independent draws, made one slice at a time so
-    the f32 draw never exceeds one layer."""
+def dense_init(key, shape, dtype, in_axis=0, *, device, stack=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape, f32) * std`` cast to ``dtype``, the
+    reference's ``dense_init``: ``std = 1/sqrt(fan_in)`` in Python float
+    (taken as f32 by the multiply), ``fan_in`` is ``shape``'s ``in_axis``
+    extent (or the product over a tuple of axes).  ``key`` holds one key a
+    slice of the leading ``stack`` dims, (*stack, 2); the whole stack is
+    one draw of :func:`repro_torch.prng.normal`."""
+    if tuple(np.shape(key)) != (*stack, 2):
+        raise ValueError(f"dense_init of stack {tuple(stack)} needs keys of shape "
+                         f"{(*stack, 2)}, got {np.shape(key)}")
     axes = (in_axis,) if isinstance(in_axis, int) else in_axis
     fan_in = int(np.prod([shape[a] for a in axes]))
     std = 1.0 / math.sqrt(fan_in)
-    out = torch.empty((*stack, *shape), dtype=dtype, device=device)
-    for idx in np.ndindex(*stack):
-        draw = torch.randn(tuple(shape), generator=generator, device=device,
-                           dtype=torch.float32)
-        out[idx] = (draw * std).to(dtype)
-    return out
+    return prng.normal(key, shape, dtype, std=std, device=device)
 
 
 def ones(shape, dtype, *, device, stack=()) -> torch.Tensor:
@@ -112,16 +115,17 @@ def rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def init_attention(cfg: ModelConfig, generator, cross: bool = False, *, device,
+def init_attention(cfg: ModelConfig, key, cross: bool = False, *, device,
                    stack=()) -> dict:
     e, hd = cfg.d_model, cfg.dhead
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     kw = dict(device=device, stack=stack)
+    ks = prng.split(key, 6)
     p = {
-        "wq": dense_init(generator, (e, nh, hd), cfg.dt, **kw),
-        "wk": dense_init(generator, (e, nkv, hd), cfg.dt, **kw),
-        "wv": dense_init(generator, (e, nkv, hd), cfg.dt, **kw),
-        "wo": dense_init(generator, (nh, hd, e), cfg.dt, in_axis=(0, 1), **kw),
+        "wq": dense_init(ks[0], (e, nh, hd), cfg.dt, **kw),
+        "wk": dense_init(ks[1], (e, nkv, hd), cfg.dt, **kw),
+        "wv": dense_init(ks[2], (e, nkv, hd), cfg.dt, **kw),
+        "wo": dense_init(ks[3], (nh, hd, e), cfg.dt, in_axis=(0, 1), **kw),
     }
     if cfg.use_qk_norm and not cross:
         p["q_norm"] = ones((hd,), cfg.dt, **kw)
@@ -377,20 +381,21 @@ def encode_cross_kv(p, enc_out, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(cfg: ModelConfig, generator, d_ff: Optional[int] = None, *,
+def init_mlp(cfg: ModelConfig, key, d_ff: Optional[int] = None, *,
              device, stack=()) -> dict:
     e = cfg.d_model
     f = d_ff or cfg.d_ff
     kw = dict(device=device, stack=stack)
+    ks = prng.split(key, 3)
     if cfg.activation == "squared_relu":
         return {
-            "wi": dense_init(generator, (e, f), cfg.dt, **kw),
-            "wo": dense_init(generator, (f, e), cfg.dt, **kw),
+            "wi": dense_init(ks[0], (e, f), cfg.dt, **kw),
+            "wo": dense_init(ks[1], (f, e), cfg.dt, **kw),
         }
     return {
-        "wg": dense_init(generator, (e, f), cfg.dt, **kw),
-        "wi": dense_init(generator, (e, f), cfg.dt, **kw),
-        "wo": dense_init(generator, (f, e), cfg.dt, **kw),
+        "wg": dense_init(ks[0], (e, f), cfg.dt, **kw),
+        "wi": dense_init(ks[1], (e, f), cfg.dt, **kw),
+        "wo": dense_init(ks[2], (f, e), cfg.dt, **kw),
     }
 
 
@@ -438,19 +443,20 @@ def mlp_apply(p, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_moe(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
+def init_moe(cfg: ModelConfig, key, *, device, stack=()) -> dict:
     m = cfg.moe
     e, f = cfg.d_model, m.expert_d_ff
     ep = m.n_experts_padded   # GShard-style padding for even EP sharding
     kw = dict(device=device, stack=stack)
+    ks = prng.split(key, 5)
     p = {
-        "router": dense_init(generator, (e, ep), torch.float32, **kw),
-        "wg": dense_init(generator, (ep, e, f), cfg.dt, in_axis=1, **kw),
-        "wi": dense_init(generator, (ep, e, f), cfg.dt, in_axis=1, **kw),
-        "wo": dense_init(generator, (ep, f, e), cfg.dt, in_axis=1, **kw),
+        "router": dense_init(ks[0], (e, ep), torch.float32, **kw),
+        "wg": dense_init(ks[1], (ep, e, f), cfg.dt, in_axis=1, **kw),
+        "wi": dense_init(ks[2], (ep, e, f), cfg.dt, in_axis=1, **kw),
+        "wo": dense_init(ks[3], (ep, f, e), cfg.dt, in_axis=1, **kw),
     }
     if m.n_shared_experts:
-        p["shared"] = init_mlp(cfg, generator, d_ff=m.n_shared_experts * f, **kw)
+        p["shared"] = init_mlp(cfg, ks[4], d_ff=m.n_shared_experts * f, **kw)
     return p
 
 

@@ -46,6 +46,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from torch.distributed.tensor import DTensor
 
+from repro_torch import prng
 from repro_torch._device import resolve_device
 
 from .config import ModelConfig
@@ -192,79 +193,101 @@ def _griffin_depths(cfg: ModelConfig) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
-def _init_attn_block(cfg: ModelConfig, generator, kw) -> dict:
-    """An attention block: self-attention, then (in a decoder) cross-
-    attention, then an MLP or an MoE."""
+def _init_attn_block(cfg: ModelConfig, key, kw) -> dict:
+    """An attention block, the reference's ``_init_block``: ``split(key,
+    8)``, self-attention from ``ks[0]``, the MLP or MoE from ``ks[1]`` and
+    (in a decoder) cross-attention from ``ks[2]``."""
     d = cfg.d_model
+    ks = prng.split(key, 8)
     p = {
         "norm1": ones((d,), cfg.dt, **kw),
-        "attn": init_attention(cfg, generator, **kw),
+        "attn": init_attention(cfg, ks[0], **kw),
         "norm2": ones((d,), cfg.dt, **kw),
     }
     if cfg.moe is not None:
-        p["moe"] = init_moe(cfg, generator, **kw)
+        p["moe"] = init_moe(cfg, ks[1], **kw)
     else:
-        p["mlp"] = init_mlp(cfg, generator, **kw)
+        p["mlp"] = init_mlp(cfg, ks[1], **kw)
     if cfg.is_encdec:
         p["norm_x"] = ones((d,), cfg.dt, **kw)
-        p["xattn"] = init_attention(cfg, generator, cross=True, **kw)
+        p["xattn"] = init_attention(cfg, ks[2], cross=True, **kw)
     return p
 
 
-def _init_rec_block(cfg: ModelConfig, generator, kw) -> dict:
+def _init_rec_block(cfg: ModelConfig, rg_key, mlp_key, kw) -> dict:
     """A griffin recurrent block: the RG-LRU, then an MLP."""
     d = cfg.d_model
     return {
         "norm1": ones((d,), cfg.dt, **kw),
-        "rg": init_rglru_block(cfg, generator, **kw),
+        "rg": init_rglru_block(cfg, rg_key, **kw),
         "norm2": ones((d,), cfg.dt, **kw),
-        "mlp": init_mlp(cfg, generator, **kw),
+        "mlp": init_mlp(cfg, mlp_key, **kw),
     }
 
 
-def _init_layers(cfg: ModelConfig, generator, device) -> dict:
-    """Every decoder block's params, stacked ``(n_layers, ...)``."""
+def _init_layers(cfg: ModelConfig, key, device) -> dict:
+    """Every decoder block's params, stacked ``(n_layers, ...)`` from the
+    layer keys ``split(key, n_layers)`` (the reference's ``_stacked``)."""
     kw = dict(device=device, stack=(cfg.n_layers,))
+    keys = prng.split(key, cfg.n_layers)
     d = cfg.d_model
     if cfg.block_pattern == "rwkv6":
+        ks = prng.split(keys, 8)
         return {
             "norm1": ones((d,), cfg.dt, **kw),
-            "tmix": init_rwkv6_tmix(cfg, generator, **kw),
+            "tmix": init_rwkv6_tmix(cfg, ks[0], **kw),
             "norm2": ones((d,), cfg.dt, **kw),
-            "cmix": init_rwkv6_cmix(cfg, generator, **kw),
+            "cmix": init_rwkv6_cmix(cfg, ks[1], **kw),
         }
-    return _init_attn_block(cfg, generator, kw)
+    return _init_attn_block(cfg, keys, kw)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
-    """The reference's param tree (same paths, shapes, dtypes and init
-    distributions), drawn from ``generator``, on ``device``.  The values
-    are torch's draws, not ``jax.random``'s: carry a JAX-made tree across
-    with :func:`repro_torch.models.interop.params_from_numpy`.
-    ``device="meta"`` builds the shapes only."""
+def init_params(cfg: ModelConfig, key, device=None) -> dict:
+    """The reference's param tree (same paths, shapes, dtypes), drawn from
+    ``key`` (:func:`repro_torch.prng.PRNGKey`) down the reference's key
+    tree, so every leaf holds ``repro.models.init_params(cfg, key)``'s
+    values; on ``device`` (``None`` = CUDA, through the ``threefry_normal``
+    kernel, one launch a leaf).  ``device="meta"`` builds the shapes only."""
     check_supported(cfg)
     dev = resolve_device(device)
+    k_emb, k_layers, k_head, k_enc, k_tail = prng.split(key, 5)
     params: dict[str, Any] = {
-        "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model), cfg.dt,
+        "embed": dense_init(k_emb, (cfg.vocab_size, cfg.d_model), cfg.dt,
                             in_axis=1, device=dev),
         "final_norm": ones((cfg.d_model,), cfg.dt, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
+        params["lm_head"] = dense_init(k_head, (cfg.d_model, cfg.vocab_size),
                                        cfg.dt, device=dev)
     if cfg.block_pattern == "griffin":
         n_groups, n_tail = _griffin_depths(cfg)
         kw = dict(device=dev, stack=(n_groups,))
-        params["groups"] = {"rec": [_init_rec_block(cfg, generator, kw) for _ in range(2)],
-                            "attn": _init_attn_block(cfg, generator, kw)}
+        ks = prng.split(prng.split(k_layers, n_groups), 6)
+        params["groups"] = {
+            "rec": [_init_rec_block(cfg, ks[i], ks[i + 2], kw) for i in range(2)],
+            "attn": {
+                "norm1": ones((cfg.d_model,), cfg.dt, **kw),
+                "attn": init_attention(cfg, ks[4], **kw),
+                "norm2": ones((cfg.d_model,), cfg.dt, **kw),
+                "mlp": init_mlp(cfg, ks[5], **kw),
+            },
+        }
         if n_tail:
-            params["tail"] = _init_rec_block(cfg, generator, dict(device=dev, stack=(n_tail,)))
+            params["tail"] = _init_rec_block(cfg, *prng.split(prng.split(k_tail, n_tail), 2),
+                                             dict(device=dev, stack=(n_tail,)))
     else:
-        params["layers"] = _init_layers(cfg, generator, dev)
+        params["layers"] = _init_layers(cfg, k_layers, dev)
     if cfg.is_encdec:
-        enc_cfg = cfg.with_(use_qk_norm=False, moe=None, encoder=None)
-        params["enc_layers"] = _init_attn_block(
-            enc_cfg, generator, dict(device=dev, stack=(cfg.encoder.n_layers,)))
+        enc_cfg = cfg.with_(use_qk_norm=False)
+        n_enc = cfg.encoder.n_layers
+        kw = dict(device=dev, stack=(n_enc,))
+        keys = prng.split(k_enc, n_enc)
+        params["enc_layers"] = {
+            "norm1": ones((cfg.d_model,), cfg.dt, **kw),
+            "attn": init_attention(enc_cfg, keys, **kw),
+            "norm2": ones((cfg.d_model,), cfg.dt, **kw),
+            "mlp": init_mlp(enc_cfg, prng.fold_in(keys, 1), **kw),
+        }
         params["enc_norm"] = ones((cfg.d_model,), cfg.dt, device=dev)
     return params
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
+
 from .config import ModelConfig
 from .layers import dense_init, gelu, ones, rms_norm, sigmoid, silu
 from .sharding import constrain, local_region, matmul, reshape
@@ -26,26 +28,27 @@ _TM_LORA = 32   # token-mix lora rank
 _TD_LORA = 64   # decay lora rank
 
 
-def init_rwkv6_tmix(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
+def init_rwkv6_tmix(cfg: ModelConfig, key, *, device, stack=()) -> dict:
     d = cfg.d_model
     h = d // cfg.rwkv_head_size
     hd = cfg.rwkv_head_size
     dt = cfg.dt
     kw = dict(device=device, stack=stack)
+    ks = prng.split(key, 12)    # the reference's 12; ks[10:] stay unused
     return {
         "x_maa": torch.zeros((*stack, d), dtype=dt, device=device),
         "maa": torch.zeros((*stack, 5, d), dtype=dt, device=device),  # w,k,v,r,g
-        "tm_w1": dense_init(generator, (d, 5 * _TM_LORA), dt, **kw),
-        "tm_w2": dense_init(generator, (5, _TM_LORA, d), dt, in_axis=1, **kw),
-        "td_w1": dense_init(generator, (d, _TD_LORA), dt, **kw),
-        "td_w2": dense_init(generator, (_TD_LORA, d), dt, **kw),
+        "tm_w1": dense_init(ks[0], (d, 5 * _TM_LORA), dt, **kw),
+        "tm_w2": dense_init(ks[1], (5, _TM_LORA, d), dt, in_axis=1, **kw),
+        "td_w1": dense_init(ks[2], (d, _TD_LORA), dt, **kw),
+        "td_w2": dense_init(ks[3], (_TD_LORA, d), dt, **kw),
         "decay_bias": torch.full((*stack, d), -6.0, dtype=dt, device=device),
-        "bonus_u": dense_init(generator, (h, hd), dt, **kw),
-        "wr": dense_init(generator, (d, d), dt, **kw),
-        "wk": dense_init(generator, (d, d), dt, **kw),
-        "wv": dense_init(generator, (d, d), dt, **kw),
-        "wg": dense_init(generator, (d, d), dt, **kw),
-        "wo": dense_init(generator, (d, d), dt, **kw),
+        "bonus_u": dense_init(ks[4], (h, hd), dt, **kw),
+        "wr": dense_init(ks[5], (d, d), dt, **kw),
+        "wk": dense_init(ks[6], (d, d), dt, **kw),
+        "wv": dense_init(ks[7], (d, d), dt, **kw),
+        "wg": dense_init(ks[8], (d, d), dt, **kw),
+        "wo": dense_init(ks[9], (d, d), dt, **kw),
         "ln_scale": ones((d,), dt, **kw),
     }
 
@@ -145,15 +148,16 @@ def rwkv6_tmix(p, x, cfg: ModelConfig, state=None):
     return out, new_state
 
 
-def init_rwkv6_cmix(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
+def init_rwkv6_cmix(cfg: ModelConfig, key, *, device, stack=()) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     kw = dict(device=device, stack=stack)
+    ks = prng.split(key, 3)
     return {
         "mu_k": torch.zeros((*stack, d), dtype=cfg.dt, device=device),
         "mu_r": torch.zeros((*stack, d), dtype=cfg.dt, device=device),
-        "wk": dense_init(generator, (d, f), cfg.dt, **kw),
-        "wv": dense_init(generator, (f, d), cfg.dt, **kw),
-        "wr": dense_init(generator, (d, d), cfg.dt, **kw),
+        "wk": dense_init(ks[0], (d, f), cfg.dt, **kw),
+        "wv": dense_init(ks[1], (f, d), cfg.dt, **kw),
+        "wr": dense_init(ks[2], (d, d), cfg.dt, **kw),
     }
 
 
@@ -190,18 +194,19 @@ def rwkv6_cmix(p, x, cfg: ModelConfig, state=None):
 _RGLRU_C = 8.0
 
 
-def init_rglru_block(cfg: ModelConfig, generator, *, device, stack=()) -> dict:
+def init_rglru_block(cfg: ModelConfig, key, *, device, stack=()) -> dict:
     d = cfg.d_model            # lru width == d_model for recurrentgemma-9b
     kw = dict(device=device, stack=stack)
+    ks = prng.split(key, 6)
     return {
-        "wx": dense_init(generator, (d, d), cfg.dt, **kw),
-        "wy": dense_init(generator, (d, d), cfg.dt, **kw),
-        "conv_w": dense_init(generator, (cfg.conv1d_width, d), cfg.dt, **kw),
+        "wx": dense_init(ks[0], (d, d), cfg.dt, **kw),
+        "wy": dense_init(ks[1], (d, d), cfg.dt, **kw),
+        "conv_w": dense_init(ks[2], (cfg.conv1d_width, d), cfg.dt, **kw),
         "conv_b": torch.zeros((*stack, d), dtype=cfg.dt, device=device),
-        "wa": dense_init(generator, (d, d), cfg.dt, **kw),
-        "wi": dense_init(generator, (d, d), cfg.dt, **kw),
+        "wa": dense_init(ks[3], (d, d), cfg.dt, **kw),
+        "wi": dense_init(ks[4], (d, d), cfg.dt, **kw),
         "a_param": torch.full((*stack, d), 0.7, dtype=torch.float32, device=device),
-        "wo": dense_init(generator, (d, d), cfg.dt, **kw),
+        "wo": dense_init(ks[5], (d, d), cfg.dt, **kw),
     }
 
 

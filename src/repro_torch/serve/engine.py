@@ -7,10 +7,11 @@ prompt K/V into a cache sized ``t + max_new_tokens`` (an
 encoder-decoder's cross-attention K/V carried over as they are; the
 sub-quadratic families keep prefill's state), the same decode positions,
 eos handling and ``tokens_out`` accounting.  Greedy decoding equals the reference's for
-the same logits.  Sampling at ``temperature > 0`` draws from a
-``torch.Generator`` seeded from ``ServeConfig.seed`` on the engine's
-device (``torch.multinomial`` over the tempered softmax): repeatable for
-a seed, but not the token stream of ``jax.random.categorical``.
+the same logits.  Sampling at ``temperature > 0`` is the reference's:
+``categorical(sub, logits / temperature)`` (:mod:`repro_torch.prng`,
+the ``gumbel_argmax`` kernel on the card) under the key schedule
+``key = PRNGKey(seed)``, then ``key, sub = split(key)`` before every
+token, so the same logits give ``jax.random.categorical``'s tokens.
 
 Namespace note: this module serves model *tokens*; the storage
 *placement* service lives in :mod:`repro_torch.serve.placement`.
@@ -25,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch._device import resolve_device
 from repro_torch.models import decode_step, init_serve_state, prefill
 from repro_torch.models.config import ModelConfig
@@ -70,11 +72,13 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _sample(self, logits, generator):
+    def _sample(self, logits, key):
         if self.scfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1)[:, None]
-        probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)
+        # A tensor divisor: CUDA divides by a host scalar as a multiply by
+        # its reciprocal, which is not the reference's division.
+        t = torch.tensor(self.scfg.temperature, dtype=logits.dtype, device=logits.device)
+        return prng.categorical(key, logits / t)[:, None]
 
     def generate(self, prompts: np.ndarray, frames=None, return_logits: bool = False):
         """prompts: (B, T) int32 -> (B, T + max_new) generated ids; an
@@ -84,7 +88,7 @@ class ServingEngine:
         sampled from, (B, n_new, V) on the engine's device."""
         cfg, scfg, dev = self.cfg, self.scfg, self.device
         b, t = prompts.shape
-        gen = torch.Generator(device=dev).manual_seed(scfg.seed)
+        key = prng.PRNGKey(scfg.seed)
 
         t0 = time.perf_counter()
         logits, state = prime(self.params, prompts, cfg, t + scfg.max_new_tokens, dev,
@@ -94,7 +98,8 @@ class ServingEngine:
 
         out = [torch.as_tensor(prompts, device=dev).long()]
         seen = [logits]
-        tok = self._sample(logits, gen)
+        key, sub = prng.split(key)
+        tok = self._sample(logits, sub)
         out.append(tok)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         if scfg.eos_id is not None:
@@ -106,7 +111,8 @@ class ServingEngine:
                 break
             logits, state = decode_step(self.params, tok, t + i - 1, state, cfg,
                                         device=dev)
-            tok = self._sample(logits, gen)
+            key, sub = prng.split(key)
+            tok = self._sample(logits, sub)
             # Rows past their eos emit uncounted padding; a row's own eos
             # token is real output and counts.
             n_tok += int(b - int(done.sum()))

@@ -33,6 +33,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models import init_params, loss_fn
+from repro_torch.prng import PRNGKey
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import param_axes, tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.sharding import (
@@ -71,12 +72,12 @@ class TrainState(NamedTuple):
     comp: Optional[CompressionState]
 
 
-def init_train_state(cfg: ModelConfig, generator: torch.Generator,
-                     compression: bool = False, device=None) -> TrainState:
-    """Params drawn from ``generator`` on ``device`` (``None`` = CUDA;
-    ``"meta"`` gives the shapes only), zero moments, an f32 master copy,
-    and zero residuals when ``compression``."""
-    params = init_params(cfg, generator, device=device)
+def init_train_state(cfg: ModelConfig, key, compression: bool = False,
+                     device=None) -> TrainState:
+    """Params drawn from ``key`` (as the reference's, value for value) on
+    ``device`` (``None`` = CUDA; ``"meta"`` gives the shapes only), zero
+    moments, an f32 master copy, and zero residuals when ``compression``."""
+    params = init_params(cfg, key, device=device)
     return TrainState(
         params=params,
         opt=adamw_init(params),
@@ -86,7 +87,7 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
 
 def train_state_shardings(cfg: ModelConfig, mesh, compression: bool = False) -> TrainState:
     """NamedShardings for the full TrainState (params + moments + master)."""
-    shapes = init_params(cfg, torch.Generator(), device="meta")
+    shapes = init_params(cfg, PRNGKey(0), device="meta")
     p_sh = tree_shardings(param_axes(cfg), shapes, mesh)
     scalar = NamedSharding(mesh, P())
     opt_sh = OptState(step=scalar, mu=p_sh, nu=p_sh, master=p_sh)

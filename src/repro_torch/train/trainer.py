@@ -1,8 +1,9 @@
 """Trainer loop: metrics, periodic (async, EC-protected) checkpointing,
 restart-on-failure, straggler accounting.
 
-The port of ``repro.train.trainer`` (``device=``, ``None`` = CUDA), with
-an explicit generator seeded from ``TrainerConfig.seed``.  With a
+The port of ``repro.train.trainer`` (``device=``, ``None`` = CUDA).  A
+fresh state is the reference's: ``init_train_state(cfg,
+PRNGKey(TrainerConfig.seed))``, drawn value for value as it draws.  With a
 ``mesh`` the step runs sharded (``make_train_step(mesh=...)``): the state
 is initialized or restored whole and laid out on the mesh by the first
 step, and a save gathers each DTensor leaf under its usual name.
@@ -24,12 +25,11 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
-import torch
-
 from repro_torch._device import resolve_device
 from repro_torch.data import DataConfig, LMDataPipeline
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig
+from repro_torch.prng import PRNGKey
 
 from .interop import train_state_dict, train_state_from_dict
 from .step import TrainState, init_train_state, make_train_step
@@ -115,9 +115,8 @@ class Trainer:
                 print(f"[train] restored checkpoint at step {step}", flush=True)
                 return state
         self.start_step = 0
-        generator = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        return init_train_state(self.cfg, generator, self.tcfg.compression,
-                                device=self.device)
+        return init_train_state(self.cfg, PRNGKey(self.tcfg.seed),
+                                self.tcfg.compression, device=self.device)
 
     def run(self, state: Optional[TrainState] = None) -> TrainState:
         if state is None:

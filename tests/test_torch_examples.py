@@ -12,9 +12,9 @@ cpu``.
 * ``placement_explorer``: every printed line equal, the two wall-time
   columns (``ms/item``, ``amort``) left out; the default table also equal
   to the reference values written below.
-* ``serve_batch``: with the config in f32 and the reference's params
-  carried across (``params_from_numpy``), the served tokens equal the
-  JAX engine's on the example's prompts; in bf16 the example runs and
+* ``serve_batch``: with the config in f32, each package drawing its own
+  params from ``PRNGKey(0)`` as its example does, the served tokens equal
+  the JAX engine's on the example's prompts; in bf16 the example runs and
   prints the reference's lines.
 """
 
@@ -41,7 +41,8 @@ from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServingEngine as JServingEngine
 
 import repro_torch.configs as tconfigs
-from repro_torch.models import params_from_numpy
+from repro_torch.models import init_params
+from repro_torch.prng import PRNGKey
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = ("placement_explorer", "serve_batch", "quickstart", "elastic_failover")
@@ -201,12 +202,13 @@ def test_explorer_defaults_give_the_reference_values():
 def test_serve_batch_f32_tokens_equal_jax_engine(arch, capsys):
     """The example's serving at its defaults (B = 4, 32-token prompts, 24
     new tokens, greedy), its prompts (and whisper's frames) drawn as the
-    reference draws them, in f32 with the reference's params."""
+    reference draws them, in f32, each package's params from its own
+    ``PRNGKey(0)`` (nothing carried across)."""
     jc = jconfigs.get_config(arch, smoke=True).with_(dtype="float32")
     tc = tconfigs.get_config(arch, smoke=True).with_(dtype="float32")
     jp = j_init(jc, jax.random.PRNGKey(0))
     got = port_example("serve_batch").serve(
-        tc, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu"), device="cpu")
+        tc, init_params(tc, PRNGKey(0), device="cpu"), device="cpu")
 
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, jc.vocab_size, size=(4, 32)).astype(np.int32)

@@ -28,6 +28,7 @@ from repro_torch.models import flatten_params, init_params
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import init_train_state, make_train_step, train_state_dict
 from repro_torch.train.interop import _named
+from repro_torch.prng import PRNGKey
 
 LOSS_REL, MASTER_LR = 1e-5, 0.05
 OPT = dict(lr=5e-3, warmup_steps=3, decay_steps=20)
@@ -57,7 +58,7 @@ def _two_rank_worker(rank: int, store: str, out: str, shape) -> None:
     try:
         cfg = cfg_of(TWO_RANK_ARCH, dtype="float32")
         m = make_local_mesh(*shape, device="cpu")
-        state = init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        state = init_train_state(cfg, PRNGKey(0), device="cpu")
         step = make_train_step(cfg, AdamWConfig(**OPT), mesh=m)
         d = data(cfg)
         losses = []
@@ -106,7 +107,7 @@ def test_two_ranks_match_one_rank(shape, tmp_path):
         res["local"][n] != tuple(s) for n, s in _full_shapes().items())
 
     cfg = cfg_of(TWO_RANK_ARCH, dtype="float32")
-    state = init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = init_train_state(cfg, PRNGKey(0), device="cpu")
     step = make_train_step(cfg, AdamWConfig(**OPT))
     d = data(cfg)
     for want in res["losses"]:
@@ -119,5 +120,5 @@ def test_two_ranks_match_one_rank(shape, tmp_path):
 
 def _full_shapes() -> dict:
     cfg = cfg_of(TWO_RANK_ARCH)
-    flat = flatten_params(init_params(cfg, torch.Generator(), device="meta"))
+    flat = flatten_params(init_params(cfg, PRNGKey(0), device="meta"))
     return {n: tuple(flat[n].shape) for n in TWO_RANK_LEAVES}

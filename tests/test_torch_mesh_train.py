@@ -54,6 +54,7 @@ from repro_torch.train import (
     train_state_from_numpy,
 )
 from repro_torch.train.interop import _named
+from repro_torch.prng import PRNGKey
 
 LOSS_REL, GRAD_REL, MOMENT_REL, MASTER_LR = 1e-5, 1e-4, 1e-3, 0.05
 OPT = dict(lr=5e-3, warmup_steps=3, decay_steps=20)
@@ -94,8 +95,8 @@ def assert_bit_equal(a: dict, b: dict) -> None:
 def test_one_rank_mesh_step_is_the_meshless_step(arch, mesh):
     cfg = cfg_of(arch)
     assert arch != "qwen3_moe_30b_a3b" or cfg.moe_dispatch == "shard_map"
-    plain = init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
-    sharded = init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    plain = init_train_state(cfg, PRNGKey(0), device="cpu")
+    sharded = init_train_state(cfg, PRNGKey(0), device="cpu")
     f_plain = make_train_step(cfg, AdamWConfig(**OPT))
     f_mesh = make_train_step(cfg, AdamWConfig(**OPT), mesh=mesh)
     d1, d2 = data(cfg), data(cfg)
@@ -150,7 +151,7 @@ def test_f32_step_matches_reference_mesh_step(arch, mesh):
 
 def test_reshard_state_round_trip(mesh):
     cfg = cfg_of("qwen3_8b")
-    state = init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = init_train_state(cfg, PRNGKey(0), device="cpu")
     before = {n: t.clone() for n, t in train_state_dict(state).items()}
     on = reshard_state(state, cfg, mesh)
     assert_on_mesh(on, mesh)
@@ -185,7 +186,7 @@ def test_trainer_on_mesh_resumes_after_node_loss_and_reshard(mesh):
     ck = DRexCheckpointer(fabric, "drex_sc",
                           CheckpointPolicy(item_mb=0.01, reliability_target=0.9999),
                           device="cpu")
-    like = init_train_state(cfg, torch.Generator(), device="meta")
+    like = init_train_state(cfg, PRNGKey(0), device="meta")
     adapter = TrainStateCheckpointer(ck, like)
     saved = _trainer(cfg, mesh, adapter)
     assert_bit_equal(_clone(saved.run()), final)

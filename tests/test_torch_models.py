@@ -58,6 +58,7 @@ from repro_torch.models import (
     unflatten_params,
 )
 from repro_torch.serve import ServingEngine
+from repro_torch.prng import PRNGKey
 
 SUPPORTED = ["qwen3_8b", "yi_6b", "nemotron_4_15b", "nemotron_4_340b",
              "chameleon_34b", "rwkv6_1_6b", "recurrentgemma_9b", "qwen2_moe_a2_7b",
@@ -161,7 +162,7 @@ def test_init_layout_equal(arch, smoke):
     ``jax.eval_shape``; the port's on the meta device, at full size too)."""
     jc, tc = configs(arch, smoke)
     want = jax_paths(jax.eval_shape(lambda: j_init(jc, jax.random.PRNGKey(0))))
-    params = init_params(tc, torch.Generator().manual_seed(0), device="meta")
+    params = init_params(tc, PRNGKey(0), device="meta")
     got = [(n, tuple(t.shape), dtype_name(t.dtype)) for n, t in flatten_params(params).items()]
     assert got == want
     assert sum(math.prod(s) for _, s, _ in got) == sum(math.prod(s) for _, s, _ in want)
@@ -191,7 +192,7 @@ def test_init_statistics(arch):
     tc = tc.with_(n_layers=4, d_model=512, d_ff=1024, vocab_size=2048, dtype="float32")
     if tc.block_pattern == "attn":
         tc = tc.with_(n_heads=8, n_kv_heads=4, head_dim=64)
-    params = init_params(tc, torch.Generator().manual_seed(3), device="cpu")
+    params = init_params(tc, PRNGKey(3), device="cpu")
     for name, leaf in flatten_params(params).items():
         fan_in = _fan_in(name, tuple(leaf.shape))
         last = name.rsplit(".", 1)[-1]
@@ -207,9 +208,9 @@ def test_init_statistics(arch):
 
 def test_init_is_seeded():
     _, tc = configs("rwkv6_1_6b")
-    a = flatten_params(init_params(tc, torch.Generator().manual_seed(1), device="cpu"))
-    b = flatten_params(init_params(tc, torch.Generator().manual_seed(1), device="cpu"))
-    c = flatten_params(init_params(tc, torch.Generator().manual_seed(2), device="cpu"))
+    a = flatten_params(init_params(tc, PRNGKey(1), device="cpu"))
+    b = flatten_params(init_params(tc, PRNGKey(1), device="cpu"))
+    c = flatten_params(init_params(tc, PRNGKey(2), device="cpu"))
     assert all(torch.equal(a[n], b[n]) for n in a)
     assert not torch.equal(a["layers.tmix.wk"], c["layers.tmix.wk"])
     assert a["layers.tmix.wk"].dtype == torch.bfloat16
@@ -517,7 +518,7 @@ def test_waiting_paths_raise(arch, call):
     (greedy tokens equal)."""
     _, tc = configs(arch)
     tc = tc.with_(dtype="float32", attn_block_q=4, attn_block_kv=4)
-    params = init_params(tc, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(tc, PRNGKey(0), device="cpu")
     toks = np.random.default_rng(0).integers(0, tc.vocab_size, (1, 8)).astype(np.int32)
     fr = frames_for(tc, b=1)
     got = BLOCKWISE_CALLS[call](params, tc.with_(attn_impl="blockwise"), toks, fr)
@@ -535,11 +536,11 @@ def test_entry_points_need_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     _, tc = configs("yi_6b")
-    params = init_params(tc, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(tc, PRNGKey(0), device="cpu")
     state = init_serve_state(tc, 1, 4, device="cpu")
     toks = np.zeros((1, 4), np.int32)
     calls = [
-        lambda: init_params(tc, torch.Generator().manual_seed(0)),
+        lambda: init_params(tc, PRNGKey(0)),
         lambda: forward(params, toks, tc),
         lambda: prefill(params, toks, tc),
         lambda: decode_step(params, toks[:, :1], 0, state, tc),
@@ -554,10 +555,10 @@ def test_entry_points_need_a_card():
 
 def test_tensor_off_the_device_raises():
     _, tc = configs("yi_6b")
-    params = init_params(tc, torch.Generator().manual_seed(0), device="meta")
+    params = init_params(tc, PRNGKey(0), device="meta")
     with pytest.raises(ValueError, match="not on cpu"):
         forward(params, np.zeros((1, 4), np.int32), tc, device="cpu")
-    cpu = init_params(tc, torch.Generator().manual_seed(0), device="cpu")
+    cpu = init_params(tc, PRNGKey(0), device="cpu")
     state = init_serve_state(tc, 1, 4, device="meta")
     with pytest.raises(ValueError, match="not on cpu"):
         decode_step(cpu, np.zeros((1, 1), np.int32), 0, state, tc, device="cpu")

@@ -38,6 +38,7 @@ import repro_torch.configs as tconfigs
 import repro_torch.models.layers as TL
 from repro_torch.checkpoint.manager import dtype_name
 from repro_torch.models import flatten_params, params_from_numpy
+from repro_torch.prng import PRNGKey
 
 LAYER_TOL, AUX_REL = 1e-5, 1e-6
 ARCHS = ["qwen2_moe_a2_7b", "qwen3_moe_30b_a3b"]
@@ -192,21 +193,26 @@ def test_decode_time_capacity_drops_like_the_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS + ["padded"])
 def test_init_moe_layout(arch):
     """Leaf names, shapes and dtypes of ``init_moe`` equal the reference's
-    (stacked two layers deep too); dense leaves draw N(0, 1/fan_in)."""
+    (stacked two layers deep too, one key a layer); dense leaves draw
+    N(0, 1/fan_in), the reference's values from the same key."""
     jc, tc = padded() if arch == "padded" else configs(arch)
     want = jax.eval_shape(lambda: JL.init_moe(jc, jax.random.PRNGKey(0)))
-    gen = torch.Generator().manual_seed(0)
-    got = TL.init_moe(tc, gen, device="cpu")
+    key = PRNGKey(0)
+    got = TL.init_moe(tc, key, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path(want)[0]
     names = [".".join(k.key for k in path) for path, _ in flat]
     tflat = flatten_params(got)
     assert list(tflat) == names
     for (_, leaf), t in zip(flat, tflat.values()):
         assert tuple(t.shape) == leaf.shape and dtype_name(t.dtype) == jnp.dtype(leaf.dtype).name
-    stacked = TL.init_moe(tc, gen, device="meta", stack=(2,))
+    stacked = TL.init_moe(tc, np.stack([key, key]), device="meta", stack=(2,))
     assert tuple(stacked["wo"].shape) == (2, *want["wo"].shape)
     fan_in = {"router": jc.d_model, "wg": jc.d_model, "wi": jc.d_model,
               "wo": jc.moe.expert_d_ff}
     for name, n in fan_in.items():
         std = float(got[name].float().std())
         assert abs(std * math.sqrt(n) - 1.0) < 0.1, (name, std)
+    drawn = JL.init_moe(jc, jax.random.PRNGKey(0))
+    for name in fan_in:
+        assert np.array_equal(got[name].float().numpy(),
+                              np.asarray(drawn[name], np.float32)), name

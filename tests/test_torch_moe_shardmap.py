@@ -36,6 +36,7 @@ from repro_torch.models import forward, init_params, params_from_numpy
 from repro_torch.models.model import param_axes, tree_leaves, tree_unflatten
 from repro_torch.models.sharding import activate_mesh, tree_shardings
 from repro_torch.train.step import full_tensor, lay_out
+from repro_torch.prng import PRNGKey
 
 F32_TOL = 1e-4
 TWO_RANK_TOL = 1e-5
@@ -67,7 +68,7 @@ def setup(arch="qwen3_moe_30b_a3b", **moe):
     cfg = generous(tconfigs.get_config(arch, True))
     if moe:
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, **moe))
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
     return cfg, params, toks
 
@@ -137,7 +138,7 @@ def _two_rank_worker(rank: int, store: str, out: str) -> None:
     try:
         cfg, params, toks = setup()
         cfg = cfg.with_(dtype="float32", moe_dispatch="shard_map")
-        params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        params = init_params(cfg, PRNGKey(0), device="cpu")
         m = make_local_mesh(1, 2, device="cpu")
         dparams = on_mesh(params, cfg, m)
         local = dparams["layers"]["moe"]["wg"].to_local().shape
@@ -158,7 +159,7 @@ def test_two_ranks_model_axis(tmp_path):
     res = torch.load(out)
     cfg, _, toks = setup()
     cfg = cfg.with_(dtype="float32")
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
     want, _ = forward(params, toks, cfg.with_(moe_dispatch="scatter"), device="cpu")
     n_layers, ep, d, f = params["layers"]["moe"]["wg"].shape
     assert res["wg_local"] == (n_layers, ep // 2, d, f)

@@ -1,30 +1,32 @@
 """The port's token-serving engine (``repro_torch.serve.engine``) held
 against the JAX package's on the CPU.
 
-Params are made by the JAX package (``PRNGKey(0)``, f32) and carried
-across bit for bit; prompts come from a numpy seed.  Greedy tokens must
+Each package makes its own params from ``PRNGKey(0)`` (f32), and they
+are bit-equal; prompts come from a numpy seed.  Greedy tokens must
 be equal: in f32 the two packages' logits differ by ~5e-6
 (``tests/test_torch_models.py``), far below the gap between the two
-largest logits of these prompts.  Sampling at ``temperature > 0`` uses
-torch's generator, so it is held to itself: one seed, one stream.
+largest logits of these prompts.  Sampling at ``temperature > 0`` draws
+``jax.random.categorical``'s tokens (``repro_torch.prng``, the same key
+schedule), so it is held to the JAX engine's tokens too, at temperatures
+0.7 and 1.0: the Gumbel noise is bit-equal and the two packages' f32
+logits differ by ~5e-6, below the gaps that decide these samples.
 """
 
 from __future__ import annotations
 
 import functools
 
-import jax
 import numpy as np
 import pytest
 import torch
+from jax_reference_params import eager_params
 
-import repro.configs as jconfigs
-from repro.models import init_params as j_init
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServingEngine as JServingEngine
 
 import repro_torch.configs as tconfigs
-from repro_torch.models import forward, params_from_numpy
+from repro_torch.models import forward, init_params
+from repro_torch.prng import PRNGKey
 from repro_torch.serve import ServeConfig, ServingEngine, TokenServingEngine
 
 SUPPORTED = ["qwen3_8b", "yi_6b", "nemotron_4_15b", "nemotron_4_340b",
@@ -34,13 +36,19 @@ NEW = 6
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_params() -> dict:
+    return eager_params(SUPPORTED, 0, "float32")
+
+
+@functools.lru_cache(maxsize=None)
 def pair(arch: str):
-    """(jax cfg, port cfg, jax params, port params), f32, smoke size."""
-    jc = jconfigs.get_config(arch, smoke=True).with_(dtype="float32")
+    """(jax cfg, port cfg, jax params, port params), f32, smoke size: each
+    package's own params from ``PRNGKey(0)``, bit-equal
+    (``tests/test_torch_init_seeded.py``; the JAX package's made eagerly,
+    ``tests/jax_reference_params.py``)."""
+    jc, jp = _jax_params()[arch]
     tc = tconfigs.get_config(arch, smoke=True).with_(dtype="float32")
-    jp = jax.jit(lambda key: j_init(jc, key))(jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
-    return jc, tc, jp, tp
+    return jc, tc, jp, init_params(tc, PRNGKey(0), device="cpu")
 
 
 def prompts(vocab: int, b: int, t: int, seed: int = 0) -> np.ndarray:
@@ -55,10 +63,19 @@ def frames(cfg, b: int, seed: int = 0):
     return (rng.standard_normal((b, cfg.encoder.n_frames, cfg.d_model)) * 0.1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_engine(arch: str) -> JServingEngine:
+    """One JAX engine a config, so its jitted prefill and step compile once."""
+    jc, _, jp, _ = pair(arch)
+    return JServingEngine(jc, jp)
+
+
 def engines(arch: str, **kw):
-    jc, tc, jp, tp = pair(arch)
-    return (JServingEngine(jc, jp, JServeConfig(**kw)),
-            ServingEngine(tc, tp, ServeConfig(**kw), device="cpu"))
+    _, tc, _, tp = pair(arch)
+    jeng = jax_engine(arch)
+    jeng.scfg = JServeConfig(**kw)
+    jeng.metrics = {"prefill_s": 0.0, "decode_s": 0.0, "tokens_out": 0}
+    return jeng, ServingEngine(tc, tp, ServeConfig(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("t", [7, 16])
@@ -124,8 +141,19 @@ def test_tokens_out_accounting_equals_jax(arch):
     assert teng.decode_tokens_per_s > 0
 
 
-def test_sampling_is_seeded():
-    _, tc, _, tp = pair("yi_6b")
+@pytest.mark.parametrize("arch", SUPPORTED)
+def test_sampling_is_seeded(arch):
+    """At temperatures 0.7 and 1.0 the tokens equal the JAX engine's for
+    the same seed (8 new tokens, f32); one seed gives one stream, another
+    seed another."""
+    _, tc, _, tp = pair(arch)
+    p7, f = prompts(tc.vocab_size, 2, 7), frames(tc, 2)
+    for temperature in (0.7, 1.0):
+        for seed in (0, 5):
+            jeng, teng = engines(arch, max_new_tokens=8, temperature=temperature, seed=seed)
+            np.testing.assert_array_equal(teng.generate(p7, frames=f), jeng.generate(p7, f))
+    if arch != "yi_6b":
+        return
     p = prompts(tc.vocab_size, 2, 6)
 
     def run(seed):

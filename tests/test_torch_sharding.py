@@ -41,6 +41,7 @@ from repro_torch.models.sharding import (
     tree_shardings,
 )
 from repro_torch.train import batch_shardings, train_state_shardings
+from repro_torch.prng import PRNGKey
 
 MESHES = {
     "16x16": ((16, 16), ("data", "model")),
@@ -78,7 +79,7 @@ def port_specs(shardings_tree) -> list:
 def test_param_specs_equal_reference(arch, mesh_name):
     m = mesh(mesh_name)
     cfg = tconfigs.get_config(arch)
-    shapes = init_params(cfg, torch.Generator(), device="meta")
+    shapes = init_params(cfg, PRNGKey(0), device="meta")
     assert [tuple(t.shape) for t in tree_leaves(shapes)] == \
         [tuple(s.shape) for s in jax.tree.leaves(ref_param_shapes(arch))]
     got = port_specs(tree_shardings(param_axes(cfg), shapes, m))

@@ -51,6 +51,7 @@ from repro_torch.train import (
     train_state_from_dict,
     train_state_from_numpy,
 )
+from repro_torch.prng import PRNGKey
 
 TRAINER_REL, TRAINER_NORM_REL = 1e-4, 1e-2
 
@@ -207,7 +208,7 @@ def test_trainer_resumes_bit_exactly_after_a_node_loss():
     _, tc = configs("rwkv6_1_6b")
     fabric = StorageFabric(make_node_set("most_used", capacity_scale=1e-4))
     ck = DRexCheckpointer(fabric, "drex_sc", CheckpointPolicy(item_mb=0.01), device="cpu")
-    like = init_train_state(tc, torch.Generator(), device="meta")
+    like = init_train_state(tc, PRNGKey(0), device="meta")
     adapter = TrainStateCheckpointer(ck, like)
     saved = _resume_setup(adapter)
     _assert_bit_equal(_clone(saved.run()), final)
@@ -256,7 +257,7 @@ def test_trainer_resumes_as_the_reference_does():
 
     fabric = StorageFabric(make_node_set("most_used", capacity_scale=1e-4))
     ck = DRexCheckpointer(fabric, "drex_sc", CheckpointPolicy(item_mb=0.1), device="cpu")
-    adapter = TrainStateCheckpointer(ck, init_train_state(tc, torch.Generator(), device="meta"))
+    adapter = TrainStateCheckpointer(ck, init_train_state(tc, PRNGKey(0), device="meta"))
 
     def both(steps):
         j = JTrainer(jc, JAdamWConfig(**opt), JTrainerConfig(steps=steps, **tkw),
@@ -294,7 +295,7 @@ def test_trainer_resumes_as_the_reference_does():
 
 def test_train_state_dict_round_trip():
     _, tc = configs("qwen3_8b")
-    state = init_train_state(tc, torch.Generator().manual_seed(0), compression=True,
+    state = init_train_state(tc, PRNGKey(0), compression=True,
                              device="cpu")
     d = train_state_dict(state)
     names = list(d)
@@ -303,10 +304,10 @@ def test_train_state_dict_round_trip():
     assert names[n] == "opt.step"
     assert [x.split(".")[1] for x in names[n + 1:]] == (
         ["mu"] * n + ["nu"] * n + ["master"] * n + ["error"] * n)
-    back = train_state_from_dict(d, init_train_state(tc, torch.Generator(), True, "meta"))
+    back = train_state_from_dict(d, init_train_state(tc, PRNGKey(0), True, "meta"))
     assert all(a is b for a, b in zip(train_state_dict(back).values(), d.values()))
     with pytest.raises(ValueError, match="leaf names"):
-        train_state_from_dict(d, init_train_state(tc, torch.Generator(), False, "meta"))
+        train_state_from_dict(d, init_train_state(tc, PRNGKey(0), False, "meta"))
 
 
 # -- across packages ---------------------------------------------------------------------------
@@ -341,7 +342,7 @@ def test_jax_train_state_checkpoint_restores_in_port(tmp_path, compression):
     import_manifest(tck, 3, jman, names=names)
     restored, step = tck.restore_latest()
     assert step == 3
-    like = init_train_state(tc, torch.Generator(), compression, device="meta")
+    like = init_train_state(tc, PRNGKey(0), compression, device="meta")
     _assert_bit_equal(train_state_dict(train_state_from_dict(restored, like)),
                       train_state_dict(carried))
 
@@ -371,7 +372,7 @@ def test_training_entry_points_need_a_card():
         pytest.skip("a CUDA card is present")
     _, tc = configs("yi_6b")
     calls = [
-        lambda: init_train_state(tc, torch.Generator()),
+        lambda: init_train_state(tc, PRNGKey(0)),
         lambda: LMDataPipeline(DataConfig(10, 4, 2)),
         lambda: Trainer(tc, AdamWConfig(), TrainerConfig()),
         lambda: launch_train.main(["--arch", "yi_6b", "--smoke", "--steps", "1"]),

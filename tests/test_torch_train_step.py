@@ -48,6 +48,7 @@ from repro_torch.train import (
     train_state_dict,
     train_state_from_numpy,
 )
+from repro_torch.prng import PRNGKey
 
 STEP_REL, MOMENT_REL, MASTER_LR = 2e-4, 1e-3, 0.05
 
@@ -146,7 +147,7 @@ def test_train_step_with_compression_matches_reference(arch):
 
 def test_train_step_consumes_state():
     _, tc = configs("yi_6b")
-    state = init_train_state(tc, torch.Generator().manual_seed(0), device="cpu")
+    state = init_train_state(tc, PRNGKey(0), device="cpu")
     w = state.params["embed"]
     before = w.clone()
     data = LMDataPipeline(DataConfig(tc.vocab_size, 8, 2), device="cpu")

@@ -31,6 +31,7 @@ import repro_torch.models.model as TM
 from repro_torch.models import forward, init_params, params_from_numpy, prefill
 from repro_torch.serve import ServeConfig, ServingEngine
 from repro_torch.serve.engine import prime
+from repro_torch.prng import PRNGKey
 
 LAYER_TOL, F32_TOL = 1e-5, 1e-4
 ARCH = "whisper_tiny"
@@ -77,10 +78,10 @@ def test_cross_attention_params_have_no_qk_norm():
     """``init_attention(cross=True)`` leaves out the qk-norm scales even
     where the config asks for them (``use_qk_norm``)."""
     jc, tc = configs(use_qk_norm=True)
-    gen = torch.Generator().manual_seed(0)
-    assert sorted(TL.init_attention(tc, gen, device="cpu")) == sorted(
+    key = PRNGKey(0)
+    assert sorted(TL.init_attention(tc, key, device="cpu")) == sorted(
         JL.init_attention(jc, jax.random.PRNGKey(0)))
-    cross = TL.init_attention(tc, gen, cross=True, device="cpu")
+    cross = TL.init_attention(tc, key, cross=True, device="cpu")
     assert sorted(cross) == sorted(JL.init_attention(jc, jax.random.PRNGKey(0), cross=True))
     assert "q_norm" not in cross and "k_norm" not in cross
 
@@ -184,7 +185,7 @@ def test_served_tokens_depend_on_the_frames():
 
 def test_frames_are_needed_and_checked():
     _, tc = configs()
-    params = init_params(tc, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(tc, PRNGKey(0), device="cpu")
     toks = np.zeros((1, 4), np.int32)
     for call in (forward, prefill):
         with pytest.raises(ValueError, match="encoder-decoder: pass frames"):
@@ -194,6 +195,6 @@ def test_frames_are_needed_and_checked():
         forward(params, toks, tc, frames=meta, device="cpu")
     # a model without an encoder ignores frames, as the reference does
     yc = tconfigs.get_config("yi_6b", True)
-    yp = init_params(yc, torch.Generator().manual_seed(0), device="cpu")
+    yp = init_params(yc, PRNGKey(0), device="cpu")
     a = forward(yp, toks, yc, device="cpu")[0]
     assert torch.equal(a, forward(yp, toks, yc, frames=np.ones((1, 3, 3)), device="cpu")[0])
