@@ -167,15 +167,21 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    normals at 0 ulp; categorical tokens equal) and against their plain
    versions bit for bit (counts 1, 7, 4,099 and 2^20 + 3, one key and a
    36-key stack, f32 and bf16 with and without ``std``, a 2^26-draw
-   window of Qwen3-8B's 622 M-draw embed leaf; Gumbel-max at (4, 65,536)
-   and (4, 151,936), temperatures 0.7 and 1.0).  Then the path, launch
+   window of Qwen3-8B's 622 M-draw embed leaf; Gumbel-max at (4, 65,536),
+   (4, 151,936) and (64, 151,936) and on the edge cases of
+   ``tests/gumbel_cases.py`` (widths about the kernel's vocabulary slice,
+   ties, NaNs and ``-inf`` across slices), temperatures 0.7 and 1.0).
+   Then the path, launch
    counts set to 0 just before it and read just after: Qwen3-8B and
    RWKV6-1.6B initialised at full width from ``PRNGKey(--seed)`` (init
    ms, launches, the largest leaf), RWKV6-1.6B served at temperature 1.0
    (4 x 128 prompt tokens, 32 new), its tokens equal to the plain
    Gumbel-max on the logits it returned under the engine's key
-   schedule.  Kernel, plain and bound ms at the window, kernel ms over the
-   whole embed leaf, Gumbel-max ms at (4, 151,936).  Every phase's
+   schedule, and its decode ms a sampled step.  Kernel, plain and bound ms
+   at the window, kernel ms over the whole embed leaf; Gumbel-max's kernel
+   ms (20 launches queued, and one at a time), plain and bound ms at the
+   three shapes above, beside ``torch.argmax`` of the same logits as a
+   yardstick.  Every phase's
    launches of the two kernels (each path's inits and sampling) are
    counted from 0 and held to the plain versions after the phase: the
    last 2^16 draws of every row of each ``threefry_normal`` launch, the
@@ -315,6 +321,27 @@ MS_NODES, MS_ITEMS = 1_000, 16
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def queued_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Median over ``rounds`` of the device milliseconds a call of ``fn``
+    takes in a run of ``reps`` calls, all queued behind a ~10 ms sleep
+    kernel, so that the host's time to issue them does not show: what
+    the card spends, launch gaps included."""
+    fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 def cuda_time_ms(fn, warmup: int = 1, reps: int = 5) -> float:
@@ -696,10 +723,14 @@ PRNG_SERVE_ARCH = "rwkv6_1_6b"
 PRNG_TEMPERATURE = 1.0
 #: the draws of the window the plain version is held to and timed at.
 PRNG_WINDOW = 1 << 26
-#: the kernel-against-plain grid: draw counts, a stack of keys, vocabularies.
+#: the kernel-against-plain grid: draw counts, a stack of keys, and the
+#: Gumbel-max shapes (the paths' decode batch of 4 at RWKV6-1.6B's and
+#: Qwen3-8B's vocabularies, and a wide batch), checked and timed.
 PRNG_COUNTS = (1, 7, 4099, (1 << 20) + 3)
 PRNG_STACK = 36
-PRNG_VOCABS = (65_536, 151_936)
+PRNG_GUMBEL_SHAPES = ((4, 65_536), (4, 151_936), (64, 151_936))
+#: the Gumbel-max shape the kernels line heads with (Qwen3-8B's decode).
+PRNG_GUMBEL_HEAD = (4, 151_936)
 #: a CPU rehearsal runs the path at smoke size.
 PRNG_SMOKE = False
 #: after a phase, each threefry_normal launch's last draws of each row are
@@ -850,11 +881,25 @@ def prng_golden_checks() -> dict:
             "normal_shapes": shapes}
 
 
+def gumbel_cases():
+    """``tests/gumbel_cases.py``: Gumbel-max's edge cases, one list with
+    the CPU and card tests."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("gumbel_cases",
+                                                  ROOT / "tests" / "gumbel_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def prng_plain_checks(seed: int) -> dict:
     """Both kernels against their plain versions on the card, bit for bit,
     at a grid of shapes: single draws, odd counts, 2^20 + 3, a 36-key
     stack, f32 and bf16 with and without ``std``, an offset window of
-    Qwen3-8B's embed leaf; Gumbel-max over (4, 65,536) and (4, 151,936)."""
+    Qwen3-8B's embed leaf; Gumbel-max at ``PRNG_GUMBEL_SHAPES`` and on
+    the edge cases of ``tests/gumbel_cases.py`` (each holding its
+    expected token where it has one)."""
     from repro_torch.kernels import ref, threefry
 
     key = prng.PRNGKey(seed)
@@ -881,57 +926,94 @@ def prng_plain_checks(seed: int) -> dict:
                                  f"count {count}, {dtype}, std {std}, offset {off}: {bad}")
         checked.append({"n_keys": keys.shape[0], "count": count, "offset": off,
                         "dtype": str(dtype).split(".")[-1], "std": std})
-    for rows, vocab in ((4, v) for v in PRNG_VOCABS):
-        logits = prng.normal(prng.split(key, 2)[1], (rows, vocab), device=DEV, std=4.0)
-        for t in (0.7, 1.0):
+    cases = gumbel_cases()
+    gumbels = [(f"{rows}x{vocab}", prng.normal(prng.split(key, 2)[1], (rows, vocab),
+                                               device=DEV, std=4.0), key, None)
+               for rows, vocab in PRNG_GUMBEL_SHAPES]
+    for name in cases.NAMES:
+        logits, token = cases.case(name)
+        gumbels.append((name, torch.from_numpy(logits).to(DEV),
+                        prng.PRNGKey(cases.SEED), token))
+    for name, logits, k, token in gumbels:
+        rows, vocab = logits.shape
+        for t in cases.TEMPERATURES:
             scaled = logits / torch.tensor(t, device=DEV)
-            got = threefry.gumbel_argmax(key, scaled)
-            want = ref.gumbel_argmax_ref(key, scaled)
+            got = threefry.gumbel_argmax(k, scaled)
+            want = ref.gumbel_argmax_ref(k, scaled)
             errs["gumbel_argmax"] = max(errs["gumbel_argmax"],
                                         float((got - want).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(f"[prng] gumbel_argmax != plain at ({rows}, {vocab}), "
-                                     f"T = {t}: {got.tolist()} vs {want.tolist()}")
-        checked.append({"rows": rows, "vocab": vocab, "temperatures": [0.7, 1.0]})
-    return {"shapes": checked, "max_abs_err": errs,
+            if not torch.equal(got, want) or (
+                    token is not None and got.tolist() != [token] * rows):
+                raise AssertionError(f"[prng] gumbel_argmax at {name} ({rows}, {vocab}), "
+                                     f"T = {t}: {got.tolist()}, plain {want.tolist()}, "
+                                     f"expected {token}")
+        checked.append({"case": name, "rows": rows, "vocab": vocab,
+                        "temperatures": list(cases.TEMPERATURES)})
+    return {"shapes": checked, "max_abs_err": errs, "gumbel_edge_cases": len(cases.NAMES),
             "embed_window": {"offset": offset, "count": PRNG_WINDOW}}
 
 
 def prng_timing(seed: int) -> dict:
     """``threefry_normal`` at the embed leaf's 2^26-draw window (kernel,
     plain version, bound on the same inputs) and over the whole 622 M-draw
-    leaf (kernel and bound); ``gumbel_argmax`` at (4, 151,936)."""
+    leaf (kernel and bound); ``gumbel_argmax`` at ``PRNG_GUMBEL_SHAPES``:
+    the kernel's device ms a call in 20 queued calls (``ms``) and one call
+    at a time between its own events (``ms_single``, the host's issue time
+    included), the plain version's, the bound, and
+    ``torch.argmax`` of the same logits (``argmax_ms``): a one-pass
+    reduction of the same bytes on this card, as a yardstick; it is not a
+    call that computes the same function (``library_ms`` stays null).
+
+    It times the kernels' own wrappers, not ``DrawLaunches``' recording
+    ones (whose copies of each launch's logits and draws would be timed
+    too), and clears the launch counts and records: these launches are
+    no path's."""
     from repro_torch.kernels import ref, threefry
+
+    normal = DRAWS.normal if DRAWS is not None else threefry.threefry_normal
+    gumbel = DRAWS.gumbel if DRAWS is not None else threefry.gumbel_argmax
 
     emb_key = prng.split(prng.PRNGKey(seed), 5)[0][None]
     emb_count, std = 151_936 * 4_096, 1 / 4096 ** 0.5
-    z = threefry.threefry_normal(emb_key, PRNG_WINDOW, torch.float32, DEV)
+    z = normal(emb_key, PRNG_WINDOW, torch.float32, DEV)
     share = _normal_small_share(z)
     del z
     win = {"count": PRNG_WINDOW, "dtype": "bfloat16", "small_branch_share": share}
-    win["ms"] = cuda_time_ms(lambda: threefry.threefry_normal(
+    win["ms"] = cuda_time_ms(lambda: normal(
         emb_key, PRNG_WINDOW, torch.bfloat16, DEV, std=std))
     win["plain_ms"] = cuda_time_ms(lambda: ref.threefry_normal_ref(
         emb_key, 0, PRNG_WINDOW, std, torch.bfloat16, DEV), warmup=1, reps=3)
     b, by = threefry.normal_bound_s(PRNG_WINDOW, share, 2)
     win["bound_ms"], win["bound_by"] = b * 1e3, by
     leaf = {"count": emb_count, "dtype": "bfloat16"}
-    leaf["ms"] = cuda_time_ms(lambda: threefry.threefry_normal(
+    leaf["ms"] = cuda_time_ms(lambda: normal(
         emb_key, emb_count, torch.bfloat16, DEV, std=std), warmup=1, reps=3)
     b, by = threefry.normal_bound_s(emb_count, share, 2)
     leaf["bound_ms"], leaf["bound_by"] = b * 1e3, by
     leaf["draws_per_s"] = emb_count / leaf["ms"] * 1e3
-    rows, vocab = 4, 151_936
-    logits = prng.normal(prng.split(prng.PRNGKey(seed), 2)[1], (rows, vocab), device=DEV)
-    key = prng.PRNGKey(seed)
-    gum = {"rows": rows, "vocab": vocab}
-    gum["ms"] = cuda_time_ms(lambda: threefry.gumbel_argmax(key, logits), warmup=2, reps=20)
-    gum["plain_ms"] = cuda_time_ms(lambda: ref.gumbel_argmax_ref(key, logits), reps=5)
-    b, by = threefry.gumbel_bound_s(rows, vocab)
-    gum["bound_ms"], gum["bound_by"] = b * 1e3, by
-    out = {"normal_window": win, "normal_embed_leaf": leaf, "gumbel": gum}
+    key, gums = prng.PRNGKey(seed), []
+    for rows, vocab in PRNG_GUMBEL_SHAPES:
+        logits = prng.normal(prng.split(key, 2)[1], (rows, vocab), device=DEV)
+        gum = {"rows": rows, "vocab": vocab, "slices": -(-vocab // threefry.GUMBEL_SLICE)}
+        gum["pass1_blocks"] = rows * gum["slices"]
+        gum["ms"] = queued_ms(lambda: gumbel(key, logits))
+        gum["ms_single"] = cuda_time_ms(lambda: gumbel(key, logits),
+                                        warmup=2, reps=20)
+        gum["plain_ms"] = cuda_time_ms(lambda: ref.gumbel_argmax_ref(key, logits), reps=5)
+        gum["argmax_ms"] = queued_ms(lambda: torch.argmax(logits, -1))
+        b, by = threefry.gumbel_bound_s(rows, vocab)
+        gum["bound_ms"], gum["bound_by"] = b * 1e3, by
+        gum["x_bound"] = gum["ms"] / gum["bound_ms"]
+        gums.append(gum)
+        del logits
+    head = next(g for g in gums if (g["rows"], g["vocab"]) == PRNG_GUMBEL_HEAD)
+    out = {"normal_window": win, "normal_embed_leaf": leaf, "gumbel": head,
+           "gumbel_shapes": gums}
     log("[prng] timing " + json.dumps(out))
-    del logits
+    if DRAWS is not None:
+        DRAWS.reset()     # the logits' draws and the timed calls are no path's
+    else:
+        threefry.reset_launches()
     torch.cuda.empty_cache()
     return out
 
@@ -977,6 +1059,8 @@ def phase_prng(seed: int) -> dict:
         0, served_cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
     ids, logits = eng.generate(prompts, return_logits=True)
     sync()
+    # decode_s spans the steps after the first token: a step and a sample each
+    decode_ms = eng.metrics["decode_s"] * 1e3 / max(ids.shape[1] - LM_PROMPT - 1, 1)
     launches = dict(threefry.launches)
     for name, n in launches.items():
         if n == 0 and DEV == "cuda":
@@ -996,6 +1080,7 @@ def phase_prng(seed: int) -> dict:
     report.update({"inits": inits, "serve": {
         "arch": served_cfg.name, "temperature": PRNG_TEMPERATURE, "batch": LM_BATCH,
         "prompt_len": LM_PROMPT, "new_tokens": int(ids.shape[1] - LM_PROMPT),
+        "decode_ms_per_sampled_step": decode_ms,
         "tokens_equal_plain": True}, "launches": launches})
     report["phase_parts_s"] = marks
     report["phase_s"] = time.perf_counter() - t_phase
@@ -3943,7 +4028,10 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "library": "none: torch.multinomial samples with another generator",
-            "shape": {"rows": 4, "vocab": 151_936},
+            "argmax_ms": prng_times["gumbel"]["argmax_ms"],
+            "argmax": "yardstick, not the same function: torch.argmax of the same logits",
+            "shape": {"rows": PRNG_GUMBEL_HEAD[0], "vocab": PRNG_GUMBEL_HEAD[1]},
+            "timed": prng_times["gumbel_shapes"],
             "shapes": [x for x in prng_run["plain"]["shapes"] if "rows" in x],
             "path_shapes": path_shapes_of("gumbel_argmax"),
         },
@@ -3953,7 +4041,7 @@ def main() -> int:
     train_fields = ("step_ms_p50", "tokens_per_s", "wkv_loop", "save", "restore_GBps",
                     "device_peak_GB", "host_peak_rss_GB")
     log("[summary] " + json.dumps({"cuts": CUTS, "phase_s": phase_s, "prng": {
-        "inits": prng_run["inits"], "timing": prng_times,
+        "inits": prng_run["inits"], "serve": prng_run["serve"], "timing": prng_times,
         "phase_s": prng_run["phase_s"]}, "lm": {
         arch: {f: r[f] for f in lm_fields if f in r} for arch, r in lm_reports.items()},
         "train": {f: train_run["report"][f] for f in train_fields},

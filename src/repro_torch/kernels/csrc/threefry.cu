@@ -26,11 +26,27 @@
 // folded into the next round's add) and ~40-50 f32 operations, and writes 2
 // or 4 bytes.  The design keeps everything in
 // registers: one thread per draw in a grid-stride loop, the key table's row
-// in blockIdx.y, the bf16 or f32 store written once.  Gumbel-max runs one
-// block per row: each thread hashes and scores a strided share of the
-// vocabulary, then a warp-shuffle and shared-memory argmax (lowest index on a
-// tie, NaN as the maximum, as jnp.argmax).  Launches go on the caller's
-// stream, allocate nothing, and return cudaGetLastError().
+// in blockIdx.y, the bf16 or f32 store written once.
+//
+// Gumbel-max is bound the same way: a vocabulary entry is the hash, two of
+// XLA's logs and a compare, on 4 bytes of logit.  So it has to fill the card
+// even at a decode batch of 4.  Pass 1 runs a (slices, rows) grid: a block of
+// kSliceThreads threads takes kSlice consecutive entries of one row (4 a
+// thread, unrolled, so four hash chains are in flight), keeps a running
+// (value, index) a thread, reduces them in warp shuffles and shared memory,
+// and writes the slice's best to a (rows, slices) scratch buffer.  Rows past
+// the grid's 65,535 loop in blockIdx.y.  Pass 2, one warp a row, reduces the
+// row's slices and writes the token.  It is launched as a programmatic
+// dependent of pass 1 (Hopper): its launch is processed while pass 1 runs,
+// and griddepcontrol.wait holds each warp until pass 1 has finished and its
+// writes are visible (about 1 us less a call at (4, 151,936) on an H100;
+// PERF.md).  Grids: (64, 4) = 256 blocks at (4, 65,536), (149, 4) = 596 at
+// (4, 151,936), (149, 64) = 9,536 at (64, 151,936), on 132 SMs.  Both passes
+// compare with beats (the lowest index on a tie, NaN as the maximum, as
+// jnp.argmax), a strict total order on (value, index) pairs, so the result is
+// the same in every reduction order and from run to run.  Launches go on the
+// caller's stream, allocate nothing (the caller passes the scratch), and
+// return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,7 +56,10 @@ namespace {
 
 constexpr int kNormalThreads = 256;
 constexpr int kNormalMaxBlocksX = 4096;
-constexpr int kArgmaxThreads = 1024;
+constexpr int kSliceThreads = 256;
+constexpr int kSlice = 1024;  // entries a pass-1 block
+constexpr int kNoIndex = 0x7FFFFFFF;  // an empty slot: (-inf, kNoIndex) loses to every entry
+constexpr int kMaxRowsY = 65535;
 
 __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
                                              uint32_t& x0, uint32_t& x1) {
@@ -186,51 +205,79 @@ threefry_normal_kernel(const uint32_t* __restrict__ keys, long long count,
 
 // a beats b: NaN first (the lower index among NaNs), then the larger value,
 // then the lower index.
-__device__ __forceinline__ bool beats(float a, long long ia, float b, long long ib) {
+__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
   const bool an = a != a, bn = b != b;
   if (an || bn) return an && (!bn || ia < ib);
   return a > b || (a == b && ia < ib);
 }
 
-// tokens (rows,) = argmax over v of gumbel(key, (rows, V))[r, v] + logits[r, v].
-__global__ void __launch_bounds__(kArgmaxThreads)
-gumbel_argmax_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ logits,
-                     long long vocab, long long* __restrict__ tokens) {
-  __shared__ float s_val[kArgmaxThreads / 32];
-  __shared__ long long s_idx[kArgmaxThreads / 32];
-  const long long base = (long long)blockIdx.x * vocab;
-  float best = -__int_as_float(0x7F800000);
-  long long best_i = vocab;  // beaten by any finite or infinite value
-  for (long long j = threadIdx.x; j < vocab; j += blockDim.x) {
-    const uint32_t b = draw_bits(k0, k1, (unsigned long long)(base + j));
-    const float u = fmaxf(uniform01(b), 0x1p-126f);
-    const float g = -xla_log(-xla_log(u));
-    const float v = __fadd_rn(g, logits[base + j]);
-    if (best_i == vocab || beats(v, j, best, best_i)) { best = v; best_i = j; }
-  }
+// The warp's best (value, index) into lane 0.
+__device__ __forceinline__ void warp_best(float& best, int& best_i) {
   for (int off = 16; off > 0; off >>= 1) {
     const float ov = __shfl_down_sync(0xFFFFFFFFu, best, off);
-    const long long oi = __shfl_down_sync(0xFFFFFFFFu, best_i, off);
-    if (oi != vocab && (best_i == vocab || beats(ov, oi, best, best_i))) {
-      best = ov; best_i = oi;
-    }
+    const int oi = __shfl_down_sync(0xFFFFFFFFu, best_i, off);
+    if (beats(ov, oi, best, best_i)) { best = ov; best_i = oi; }
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) { s_val[warp] = best; s_idx[warp] = best_i; }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x / 32;
-    best = lane < n_warps ? s_val[lane] : 0.0f;
-    best_i = lane < n_warps ? s_idx[lane] : vocab;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xFFFFFFFFu, best, off);
-      const long long oi = __shfl_down_sync(0xFFFFFFFFu, best_i, off);
-      if (oi != vocab && (best_i == vocab || beats(ov, oi, best, best_i))) {
-        best = ov; best_i = oi;
+}
+
+// Pass 1: part_val/part_idx (rows, slices) = the best of
+// gumbel(key, (rows, V))[r, v] + logits[r, v] over the slice's v.
+__global__ void __launch_bounds__(kSliceThreads)
+gumbel_slice_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ logits,
+                    int rows, int vocab, float* __restrict__ part_val,
+                    int* __restrict__ part_idx) {
+  __shared__ float s_val[kSliceThreads / 32];
+  __shared__ int s_idx[kSliceThreads / 32];
+  const int slices = gridDim.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lo = blockIdx.x * kSlice + threadIdx.x;
+  asm volatile("griddepcontrol.launch_dependents;");  // pass 2 may launch now
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const unsigned long long base = (unsigned long long)r * vocab;
+    float best = -__int_as_float(0x7F800000);
+    int best_i = kNoIndex;
+#pragma unroll
+    for (int k = 0; k < kSlice / kSliceThreads; ++k) {
+      const int j = lo + k * kSliceThreads;
+      if (j < vocab) {
+        const uint32_t b = draw_bits(k0, k1, base + j);
+        const float u = fmaxf(uniform01(b), 0x1p-126f);
+        const float g = -xla_log(-xla_log(u));
+        const float v = __fadd_rn(g, logits[base + j]);
+        if (beats(v, j, best, best_i)) { best = v; best_i = j; }
       }
     }
-    if (lane == 0) tokens[blockIdx.x] = best_i;
+    warp_best(best, best_i);
+    if (lane == 0) { s_val[warp] = best; s_idx[warp] = best_i; }
+    __syncthreads();
+    if (warp == 0) {
+      best = lane < kSliceThreads / 32 ? s_val[lane] : -__int_as_float(0x7F800000);
+      best_i = lane < kSliceThreads / 32 ? s_idx[lane] : kNoIndex;
+      warp_best(best, best_i);
+      if (lane == 0) {
+        part_val[(long long)r * slices + blockIdx.x] = best;
+        part_idx[(long long)r * slices + blockIdx.x] = best_i;
+      }
+    }
+    __syncthreads();  // s_val/s_idx are read before the next row writes them
   }
+}
+
+// Pass 2, one warp a row: tokens[r] = the index of the best of the row's slices.
+__global__ void __launch_bounds__(32)
+gumbel_combine_kernel(const float* __restrict__ part_val,
+                      const int* __restrict__ part_idx, int slices,
+                      long long* __restrict__ tokens) {
+  const long long row = (long long)blockIdx.x * slices;
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // pass 1 done and visible
+  float best = -__int_as_float(0x7F800000);
+  int best_i = kNoIndex;
+  for (int s = threadIdx.x; s < slices; s += 32) {
+    const float v = part_val[row + s];
+    const int i = part_idx[row + s];
+    if (beats(v, i, best, best_i)) { best = v; best_i = i; }
+  }
+  warp_best(best, best_i);
+  if (threadIdx.x == 0) tokens[blockIdx.x] = best_i;
 }
 
 }  // namespace
@@ -259,12 +306,38 @@ int threefry_normal(const void* keys, int n_keys, long long count, long long off
   return (int)cudaGetLastError();
 }
 
-// logits: (rows, vocab) f32 contiguous; tokens: (rows,) int64.
+// logits: (rows, vocab) f32 contiguous; tokens: (rows,) int64; scratch:
+// scratch_bytes >= 8 * rows * ceil(vocab / kSlice) on the device, which the
+// launch overwrites (f32 values, then int32 indices).
 int gumbel_argmax(unsigned int k0, unsigned int k1, const void* logits, int rows,
-                  long long vocab, void* tokens, void* stream) {
-  if (rows <= 0 || vocab <= 0) return (int)cudaErrorInvalidValue;
-  gumbel_argmax_kernel<<<rows, kArgmaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      k0, k1, static_cast<const float*>(logits), vocab, static_cast<long long*>(tokens));
+                  long long vocab, void* scratch, long long scratch_bytes,
+                  void* tokens, void* stream) {
+  // int indices: the last slice's threads must not pass INT_MAX
+  if (rows <= 0 || vocab <= 0 || vocab > kNoIndex - kSlice)
+    return (int)cudaErrorInvalidValue;
+  const int slices = (int)((vocab + kSlice - 1) / kSlice);
+  const long long parts = (long long)rows * slices;
+  if (scratch_bytes < 8 * parts) return (int)cudaErrorInvalidValue;
+  float* part_val = static_cast<float*>(scratch);
+  int* part_idx = reinterpret_cast<int*>(part_val + parts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)slices, (unsigned)(rows < kMaxRowsY ? rows : kMaxRowsY));
+  gumbel_slice_kernel<<<grid, kSliceThreads, 0, s>>>(
+      k0, k1, static_cast<const float*>(logits), rows, (int)vocab, part_val, part_idx);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // pass 2 as a programmatic dependent of pass 1 (it waits in the kernel)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)rows);
+  cfg.blockDim = dim3(32);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, gumbel_combine_kernel, (const float*)part_val,
+                     (const int*)part_idx, slices, static_cast<long long*>(tokens));
   return (int)cudaGetLastError();
 }
 

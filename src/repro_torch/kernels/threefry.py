@@ -23,8 +23,13 @@ row costs the hash and two ``log``s a vocabulary entry.
 **What the design does about it.**  Nothing leaves registers but the
 output: one thread a draw in a grid-stride loop, one grid row a key of
 the leaf's key table (a stacked leaf is one launch), the cast to bf16
-fused into the store.  Gumbel-max runs one block a row and reduces the
-argmax in shuffles and shared memory, without writing the noise.
+fused into the store.  Gumbel-max fills the card at any batch: a (slices,
+rows) grid of blocks that each take :data:`GUMBEL_SLICE` entries of one
+row (at a decode batch of 4: 256 blocks over 65,536 entries a row, 596
+over 151,936, on 132 SMs) and reduce them in shuffles and shared memory
+into a (rows, slices) scratch buffer, then a warp a row reduces the
+slices into the token (launched as a programmatic dependent of the first
+pass, so its launch overlaps it).  The noise is never written.
 
 **Build.**  ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared
 library with a plain C interface, at first use, into ``_build/`` beside
@@ -56,13 +61,18 @@ __all__ = [
     "reset_launches",
     "normal_bound_s",
     "gumbel_bound_s",
+    "GUMBEL_SLICE",
     "SOURCE",
 ]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "threefry.cu"
 
-#: kernel launches since import or the last :func:`reset_launches`.
+#: kernel launches since import or the last :func:`reset_launches`; a
+#: ``gumbel_argmax`` call counts one, though it runs two passes.
 launches = {"threefry_normal": 0, "gumbel_argmax": 0}
+#: vocabulary entries a ``gumbel_argmax`` pass-1 block takes (``kSlice`` in
+#: csrc/threefry.cu).
+GUMBEL_SLICE = 1024
 
 # Operations a normal draw needs, counted from csrc/threefry.cu as the least
 # the hash can take.  int32: 20 rounds of add, funnel shift and xor (60); the
@@ -122,7 +132,8 @@ def _library() -> ctypes.CDLL:
             lib.threefry_normal.restype = ctypes.c_int
             lib.gumbel_argmax.argtypes = [
                 ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                ctypes.c_void_p,
             ]
             lib.gumbel_argmax.restype = ctypes.c_int
             _lib = lib
@@ -192,13 +203,19 @@ def gumbel_argmax(key, logits: torch.Tensor) -> torch.Tensor:
     rows, vocab = logits.shape
     if rows == 0 or vocab == 0:
         raise ValueError(f"empty logits {tuple(logits.shape)}")
+    if vocab > 2**31 - 1 - GUMBEL_SLICE:
+        raise ValueError(f"vocabulary {vocab}: the kernel indexes it in int32")
     logits = logits.contiguous()
     out = torch.empty((rows,), dtype=torch.int64, device=logits.device)
+    # each (row, slice)'s best: f32 values, then int32 indices
+    parts = rows * -(-vocab // GUMBEL_SLICE)
+    scratch = torch.empty((2 * parts,), dtype=torch.int32, device=logits.device)
     lib = _library()
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         err = lib.gumbel_argmax(int(key[0]), int(key[1]), logits.data_ptr(), rows,
-                                vocab, out.data_ptr(), stream)
+                                vocab, scratch.data_ptr(), 8 * parts, out.data_ptr(),
+                                stream)
     if err != 0:
         raise RuntimeError(f"gumbel_argmax launch failed: CUDA error {err}")
     launches["gumbel_argmax"] += 1

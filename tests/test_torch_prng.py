@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import gumbel_cases
 import jax_prng_golden as golden_mod
 from repro_torch import prng
 from repro_torch.kernels import ref, threefry
@@ -184,6 +185,36 @@ def test_gumbel_argmax_ties_and_nan():
     want = np.asarray(jax.random.categorical(jax.random.PRNGKey(0), logits.numpy(), axis=-1))
     got = threefry.gumbel_argmax(key, logits).numpy()
     assert got.tolist() == want.tolist() == [5, 7, 2]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_edge_tokens() -> dict:
+    """jax's categorical tokens on every case of ``gumbel_cases`` at both
+    temperatures, compiled on threads as ``_jax_bits_uniform`` is."""
+    jkey = jax.random.PRNGKey(gumbel_cases.SEED)
+
+    def one(name):
+        logits = jnp.asarray(gumbel_cases.case(name)[0])
+        return [np.asarray(jax.random.categorical(jkey, logits / t, axis=-1))
+                for t in gumbel_cases.TEMPERATURES]
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return dict(zip(gumbel_cases.NAMES, pool.map(one, gumbel_cases.NAMES)))
+
+
+@pytest.mark.parametrize("name", gumbel_cases.NAMES)
+def test_categorical_edge_cases(name):
+    """The kernel's edge cases (widths about its slice, ties, NaNs and
+    ``-inf`` across slices): the plain version equals
+    ``jax.random.categorical`` at both temperatures."""
+    logits, token = gumbel_cases.case(name)
+    key = prng.PRNGKey(gumbel_cases.SEED)
+    for temperature, want in zip(gumbel_cases.TEMPERATURES, _jax_edge_tokens()[name]):
+        scaled = torch.from_numpy(logits) / torch.tensor(temperature, dtype=torch.float32)
+        got = prng.categorical(key, scaled).numpy()
+        assert np.array_equal(got, want)
+        if token is not None:
+            assert got.tolist() == [token] * logits.shape[0]
 
 
 def test_key_checks():
