@@ -88,12 +88,15 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
    port's ``Trainer`` for 6 steps at B = 8, T = 128 with the launcher's
    AdamW (lr 3e-3, 5 warmup steps) and data pipeline; at step 4 the whole
    state is saved asynchronously through D-Rex SC on the ``most_used``
-   node set (policy defaults).  Then a node holding chunks fails, a second
+   node set (policy defaults): the call returns after the snapshot, and
+   step 5 begins while the save encodes on its worker (checked).  Then a
+   node holding chunks fails, a second
    ``Trainer`` restores the state (bit-equal, leaf by leaf, to a host copy
    taken at the save) and runs steps 5-6 again: losses and the final
-   state bit-equal to the uninterrupted run.  Step ms, tokens/s, loss and
-   grad norm per step, save/restore GB/s, device and host peaks, and the
-   WKV loop's share of a step.  Then one step's f32 loss and gradients,
+   state bit-equal to the uninterrupted run.  Step ms (those begun with
+   the save pending apart), tokens/s, loss and grad norm per step, the
+   save's stall and length, save/restore GB/s, device and host peaks, and
+   the WKV loop's share of a step.  Then one step's f32 loss and gradients,
    on the card and on the CPU, for RWKV6-1.6B and Qwen3-8B cut to 2
    layers at full width, leaf by leaf within max(floor, ``LM_BAND`` x the
    band the run measures, as ``[lm]`` does).
@@ -2211,11 +2214,30 @@ TRAIN_LOSS_FLOOR = {"max_abs_err": 1e-5, "mean_abs_err": 1e-5}
 TRAIN_GRAD_FLOOR = {"max_abs_err": 1e-3, "mean_abs_err": 1e-4}
 
 
+def after(fut: concurrent.futures.Future, on_done) -> concurrent.futures.Future:
+    """A future that resolves as ``fut`` does once ``on_done(fut)`` has
+    run: what ``on_done`` records is there when ``result()`` returns (a
+    done callback may run after the waiter wakes)."""
+    out: concurrent.futures.Future = concurrent.futures.Future()
+
+    def relay(f):
+        try:
+            on_done(f)
+        finally:
+            if f.exception() is not None:
+                out.set_exception(f.exception())
+            else:
+                out.set_result(f.result())
+
+    fut.add_done_callback(relay)
+    return out
+
+
 class SnapshotCheckpointer:
     """The Trainer's checkpointer (``TrainStateCheckpointer``) that also
     keeps a host copy of the state it is asked to save, and times the
-    save: ``stall_s`` (the call, which encodes) and ``save_s`` (until the
-    last chunk is on the fabric)."""
+    save: ``stall_s`` (the call, which takes the snapshot and returns)
+    and ``save_s`` (until the last chunk is on the fabric)."""
 
     def __init__(self, inner):
         self.inner = inner
@@ -2230,20 +2252,22 @@ class SnapshotCheckpointer:
         t0 = time.perf_counter()
         fut = self.inner.save_async(state, step)
         self.times["stall_s"] = time.perf_counter() - t0
-        fut.add_done_callback(
-            lambda f: self.times.setdefault("save_s", time.perf_counter() - t0))
-        return fut
+        return after(fut, lambda f: self.times.setdefault("save_s", time.perf_counter() - t0))
 
     def restore_latest(self, cfg):
         return self.inner.restore_latest(cfg)
 
 
-def timed_steps(trainer, out: list) -> None:
+def timed_steps(trainer, out: list, overlapped: list | None = None) -> None:
     """Time each of ``trainer``'s steps on the host clock, the device
-    drained on both sides."""
+    drained on both sides (the save's stream too); with ``overlapped``,
+    note for each step whether an async save was pending as it began."""
     inner = trainer.step_fn
 
     def step(state, batch):
+        if overlapped is not None:
+            fut = trainer._pending_ckpt
+            overlapped.append(fut is not None and not fut.done())
         result, ms = host_ms(lambda: inner(state, batch))
         out.append(ms)
         return result
@@ -2377,13 +2401,13 @@ def phase_train(seed: int) -> dict:
     like = init_train_state(cfg, prng.PRNGKey(0), device="meta")
     recorder = SnapshotCheckpointer(TrainStateCheckpointer(ck, like))
 
-    def trainer(step_ms: list):
+    def trainer(step_ms: list, overlapped: list | None = None):
         t = Trainer(cfg, opt_cfg,
                     TrainerConfig(steps=TRAIN_STEPS, log_every=1, ckpt_every=TRAIN_CKPT_EVERY,
                                   seed=seed, async_ckpt=True),
                     data_cfg=DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed),
                     checkpointer=recorder, log_fn=lambda s, m: None, device=entry_device())
-        timed_steps(t, step_ms)
+        timed_steps(t, step_ms, overlapped)
         return t
 
     # The [train] path's run: every count set to 0 just before, read after
@@ -2394,9 +2418,15 @@ def phase_train(seed: int) -> dict:
     pb_frontier.reset_launches()
 
     step_ms: list = []
-    straight = trainer(step_ms)
+    overlapped: list = []
+    straight = trainer(step_ms, overlapped)
     final = straight.run()
     marks = [("train_and_save", time.perf_counter())]
+    # The save returns after its snapshot, so the steps after it run while
+    # it encodes; they are held bit-equal to the resumed run's below.
+    if DEV == "cuda" and not overlapped[TRAIN_CKPT_EVERY]:
+        raise AssertionError(f"step {TRAIN_CKPT_EVERY + 1} began after the async save "
+                             f"had ended: {overlapped}")
     device_peak_train = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
     n_params = sum(t.numel() for n, t in train_state_dict(final).items()
                    if n.startswith("params."))
@@ -2481,6 +2511,9 @@ def phase_train(seed: int) -> dict:
         "history": [{k: h[k] for k in ("step", "loss", "nll", "grad_norm", "lr")}
                     for h in history],
         "wkv_loop": share,
+        "steps_overlapping_save": [i + 1 for i, o in enumerate(overlapped) if o],
+        "step_ms_overlapping_save": [ms for ms, o in zip(step_ms, overlapped) if o],
+        "step_ms_without_save": [ms for ms, o in zip(step_ms, overlapped) if not o],
         "save": {"stall_s": recorder.times["stall_s"], "save_s": recorder.times["save_s"],
                  "save_GBps": gb / recorder.times["save_s"],
                  "place_s": ck_stats["place_s"], "encode_s": ck_stats["encode_s"],
@@ -3531,9 +3564,10 @@ def examples_quickstart() -> dict:
     class Checkpointer(ex.TrainStateCheckpointer):
         """Records every save's ``place_many`` with a copy of the cluster
         as it stood, and times each async save: ``stall_s`` (the call,
-        which encodes) and ``save_s`` (until the last chunk is on the
-        fabric); after each, the rs_bitmatmul shapes issued so far (a
-        save encodes on the calling thread, and nothing before it in
+        which takes the snapshot and returns) and ``save_s`` (until the
+        last chunk is on the fabric); once each save is done, the
+        rs_bitmatmul shapes issued so far (its worker encodes, one save
+        is pending at a time, and nothing before the saves in
         [examples] codes bytes)."""
 
         def __init__(self, checkpointer, like):
@@ -3555,10 +3589,12 @@ def examples_quickstart() -> dict:
             fut = super().save_async(state, step)
             rec = {"step": step, "stall_s": time.perf_counter() - t0}
             saves.append(rec)
-            save_shapes.update(shapes.issued_shapes(ops.CENSUS_KERNEL))
-            fut.add_done_callback(
-                lambda f: rec.setdefault("save_s", time.perf_counter() - t0))
-            return fut
+
+            def done(f):
+                rec.setdefault("save_s", time.perf_counter() - t0)
+                save_shapes.update(shapes.issued_shapes(ops.CENSUS_KERNEL))
+
+            return after(fut, done)
 
     ex.Trainer, ex.TrainStateCheckpointer = Trainer, Checkpointer
     if DEV == "cuda":

@@ -32,7 +32,7 @@ class StorageFabric:
     ):
         self.nodes = list(nodes)
         self.cluster = ClusterView.from_nodes(self.nodes)
-        self._blobs: list[dict[str, bytes]] = [{} for _ in self.nodes]
+        self._blobs: list[dict[str, bytes | memoryview]] = [{} for _ in self.nodes]
         self._lock = threading.Lock()
         #: simulated per-put link bandwidth (MB/s): each ``put`` blocks
         #: its calling thread for blob_mb / link_mbps *outside* the
@@ -49,7 +49,9 @@ class StorageFabric:
 
     # -- data plane -----------------------------------------------------------
 
-    def put(self, node_id: int, key: str, blob: bytes) -> None:
+    def put(self, node_id: int, key: str, blob: bytes | memoryview) -> None:
+        """Store ``blob`` (bytes, or a read-only view the fabric keeps as
+        given) under ``key`` on a live node with room for it."""
         if self.link_mbps:
             time.sleep(len(blob) / 1e6 / self.link_mbps)
         with self._lock:
@@ -67,7 +69,7 @@ class StorageFabric:
         if self.persist_dir:
             (self.persist_dir / f"node_{node_id}" / key).write_bytes(blob)
 
-    def get(self, node_id: int, key: str) -> Optional[bytes]:
+    def get(self, node_id: int, key: str) -> Optional[bytes | memoryview]:
         with self._lock:
             if not self.cluster.alive[node_id]:
                 return None

@@ -14,8 +14,19 @@ checkpoint are placed in ONE ``place_many`` batch (one shared
 once per wave, and each wave's fabric ``put`` overlaps the *next* wave's
 encode through a multi-worker I/O pool (double-buffered — at most two
 waves of chunks are in flight).  ``pipeline_workers=0`` is the serial
-path (per-group encode then put).  Only the calling thread launches
-kernels; the I/O pool handles host bytes only.
+path (per-group encode then put).
+
+A save starts with a snapshot on the calling thread: every group's
+bucket-padded payload is copied into a fresh tensor on the
+checkpointer's device, on the caller's current stream, and an event is
+recorded behind the copies.  ``save_async`` returns after that; the
+placement, the encode waves, their copies to the host and the puts run
+on a save-pool worker (``save`` runs the same body inline).  On a CUDA
+device that body runs on the checkpointer's own stream, which first
+waits on the snapshot's event, so work the caller queues next on its
+stream (an in-place training step) runs after the copies and overlaps
+the save.  Each wave's payloads are dropped once its chunks are on the
+host.  The I/O pool handles host bytes only.
 
 The state is an ordered ``dict[str, torch.Tensor]`` (a ``state_dict``);
 leaf order is the dict's order and the manifest records each leaf's
@@ -28,6 +39,7 @@ leaf bytes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -72,6 +84,21 @@ class _Group:
     orig_nbytes: int
 
 
+@dataclasses.dataclass
+class _Snapshot:
+    """What a save needs of the state: the groups' padded payloads (new
+    tensors, dropped wave by wave), their unpadded lengths and (leaf,
+    part) slots, the manifest skeleton, and on CUDA the event recorded
+    behind the payloads' copies."""
+
+    step: int
+    manifest: dict
+    payloads: list
+    orig_lens: list
+    slots: list
+    ready: Optional[torch.cuda.Event]
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     """Manifest name of a dtype: torch's name without the prefix, which
     is numpy's name for every dtype numpy has ("float32", "bfloat16")."""
@@ -98,13 +125,13 @@ def _pad_to_bucket(payload: torch.Tensor) -> torch.Tensor:
     """Pad to power-of-two bucket sizes so the codec sees a bounded set of
     chunk shapes — <=2x padding on the tail group only.  Every
     (re-)encode of a group MUST go through this so repaired chunks keep
-    the shape of the surviving ones."""
+    the shape of the surviving ones.  The result is always a new tensor,
+    also when the payload fills its bucket: a save's snapshot must not
+    alias the state."""
     bucket = 4096
     n = payload.numel()
     while bucket < n:
         bucket <<= 1
-    if bucket == n:
-        return payload
     out = payload.new_zeros(bucket)
     out[:n] = payload
     return out
@@ -122,6 +149,14 @@ def _to_host(chunk_mats: list[torch.Tensor]) -> list[np.ndarray]:
         out.append(flat[off : off + n].reshape(tuple(c.shape)))
         off += n
     return out
+
+
+def _blob(row: np.ndarray) -> memoryview:
+    """A chunk row as the fabric keeps it: a read-only view of its wave's
+    host buffer, equal to the row's bytes.  A ``tobytes`` copy would hold
+    the GIL for its whole memcpy, and an async save's puts would then
+    stall every launch of the caller's training step."""
+    return memoryview(row).toreadonly()
 
 
 class DRexCheckpointer:
@@ -146,8 +181,8 @@ class DRexCheckpointer:
         self.scheduler = self.engine.scheduler
         self.policy = policy or CheckpointPolicy()
         self._manifests: dict[int, dict] = {}
-        # save_async's finishers wait only on I/O futures, never on each
-        # other, so two overlapping saves cannot deadlock.
+        # A save-pool worker waits only on I/O futures, never on another
+        # save, so two overlapping saves cannot deadlock.
         self._save_pool = ThreadPoolExecutor(max_workers=2)
         self._io_pool = ThreadPoolExecutor(
             max_workers=max(1, self.policy.pipeline_workers)
@@ -157,6 +192,10 @@ class DRexCheckpointer:
         self._place_lock = threading.Lock()
         self._meta_lock = threading.Lock()
         self._item_counter = 0
+        #: the stream a save's placement, encodes and copies run on.
+        self._stream = (
+            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        )
         self.stats: dict[str, float] = {
             "bytes_raw": 0.0, "bytes_stored": 0.0, "encode_s": 0.0, "place_s": 0.0,
         }
@@ -169,37 +208,32 @@ class DRexCheckpointer:
         Placement decisions for all groups are made against the cluster
         view at the start of the save (one ``place_many`` batch) — the
         fabric's byte accounting still updates as chunks land."""
-        manifest, groups, slots, pending = self._encode_and_submit(state, step)
-        self._drain(pending)
-        return self._finish(manifest, groups, slots, step)
+        return self._write(self._snapshot(state, step))
 
     def save_async(self, state: Mapping[str, torch.Tensor], step: int) -> Future:
-        """Place and encode on the calling thread (a consistent snapshot,
-        and the only thread that launches kernels), land the chunks in the
-        background.  The future resolves to the manifest once every chunk
-        is on the fabric; a failure in any phase is raised by
-        ``result()``."""
+        """Snapshot the state on the calling thread, then place, encode
+        and land the chunks on a save-pool worker, as the JAX package's
+        ``save_async`` does.  On CUDA the snapshot's copies are queued on
+        the caller's current stream and the call returns without waiting
+        for them; the worker's kernels run on the checkpointer's own
+        stream.  The future resolves to the manifest once every chunk is
+        on the fabric; a failure in any phase is raised by ``result()``
+        and registers no manifest."""
         try:
-            manifest, groups, slots, pending = self._encode_and_submit(state, step)
+            snap = self._snapshot(state, step)
         except Exception as exc:  # surface through the future, like a put error
             failed: Future = Future()
             failed.set_exception(exc)
             return failed
+        return self._save_pool.submit(self._write, snap)
 
-        def finish():
-            self._drain(pending)
-            return self._finish(manifest, groups, slots, step)
-
-        return self._save_pool.submit(finish)
-
-    def _encode_and_submit(self, state, step):
-        """Phases 1-3 of a save: split, place, encode waves.  Returns the
-        manifest skeleton, the groups, their (leaf, part) slots and the
-        pending put futures."""
+    def _snapshot(self, state, step) -> _Snapshot:
+        """Phase 1 of a save, on the calling thread: every leaf split into
+        group payloads, each bucket-padded into a new tensor on the
+        checkpointer's device, so nothing of the snapshot aliases the
+        state."""
         manifest: dict[str, Any] = {"step": step, "leaves": []}
-        policy = self.policy
-        max_bytes = int(policy.item_mb * 1e6)
-        # 1. Split every leaf into group payloads (bucket-padded).
+        max_bytes = int(self.policy.item_mb * 1e6)
         payloads: list[torch.Tensor] = []
         orig_lens: list[int] = []
         slots: list[tuple[int, int]] = []  # (leaf_i, part)
@@ -217,17 +251,65 @@ class DRexCheckpointer:
                 payloads.append(_pad_to_bucket(payload))
                 orig_lens.append(payload.numel())
                 slots.append((li, off // max_bytes))
-        # 2. One placement batch: groups share retention and reliability
-        # target, so the engine's batch context amortizes the scheduler's
-        # reliability DP across all groups of this save.
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        return _Snapshot(step, manifest, payloads, orig_lens, slots, ready)
+
+    @contextlib.contextmanager
+    def _save_stream(self, snap: _Snapshot):
+        """On CUDA, the checkpointer's stream once the snapshot's copies
+        are done; the payloads are marked as used there, so the caller's
+        stream reuses their memory only after the save's work on them."""
+        if snap.ready is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            self._stream.wait_event(snap.ready)
+            for payload in snap.payloads:
+                payload.record_stream(self._stream)
+            yield
+
+    def _write(self, snap: _Snapshot) -> dict:
+        """Phases 2-4 of a save: place, encode waves while earlier waves
+        land, register the manifest."""
+        groups: list[Optional[_Group]] = [None] * len(snap.payloads)
+        with self._save_stream(snap):
+            placements = self._place(snap)
+            # 3. Cohort waves: encode wave i+1 while wave i's chunks land.
+            wave_size = 1 if self.policy.pipeline_workers == 0 else max(
+                1, self.policy.encode_wave_groups
+            )
+            waves: list[list[int]] = []
+            for (_kp, idxs) in plan_cohorts([(pl.k, pl.p) for pl in placements]):
+                for w in range(0, len(idxs), wave_size):
+                    waves.append(idxs[w : w + wave_size])
+            pending: deque[Future] = deque()
+            try:
+                self._encode_waves(
+                    waves, snap.payloads, placements, snap.slots, snap.orig_lens,
+                    groups, snap.step, pending,
+                )
+            except BaseException:
+                self._drain(pending, quiet=True)  # no orphaned background puts
+                raise
+            self._drain(pending)
+        return self._finish(snap.manifest, groups, snap.slots, snap.step)
+
+    def _place(self, snap: _Snapshot) -> list[Placement]:
+        """2. One placement batch: groups share retention and reliability
+        target, so the engine's batch context amortizes the scheduler's
+        reliability DP across all groups of this save."""
+        policy = self.policy
         with self._place_lock:
             items = []
-            for payload in payloads:
+            for payload in snap.payloads:
                 self._item_counter += 1
                 items.append(DataItem(
                     item_id=self._item_counter,
                     size_mb=max(payload.numel() / 1e6, 1e-6),
-                    arrival_time=float(step),
+                    arrival_time=float(snap.step),
                     delta_t_days=policy.retention_days,
                     reliability_target=policy.reliability_target,
                 ))
@@ -243,41 +325,20 @@ class DRexCheckpointer:
                     f"RT={policy.reliability_target}): {record.reason}"
                 )
             placements.append(record.placement)
-        # 3. Cohort waves: encode wave i+1 while wave i's chunks land.
-        groups: list[Optional[_Group]] = [None] * len(payloads)
-        wave_size = 1 if policy.pipeline_workers == 0 else max(
-            1, policy.encode_wave_groups
-        )
-        waves: list[list[int]] = []
-        for (_kp, idxs) in plan_cohorts([(pl.k, pl.p) for pl in placements]):
-            for w in range(0, len(idxs), wave_size):
-                waves.append(idxs[w : w + wave_size])
-        pending: deque[Future] = deque()
-        try:
-            self._encode_waves(
-                waves, payloads, placements, slots, orig_lens, groups,
-                step, pending,
-            )
-        except BaseException:
-            while pending:  # no orphaned background puts behind an error
-                try:
-                    pending.popleft().result()
-                except Exception:
-                    pass
-            raise
-        return manifest, groups, slots, pending
+        return placements
 
     @staticmethod
-    def _drain(pending: deque) -> None:
-        try:
-            while pending:
+    def _drain(pending: deque, quiet: bool = False) -> None:
+        """Wait for every pending put, also behind a failed one; raise the
+        first failure unless ``quiet``."""
+        first = None
+        while pending:
+            try:
                 pending.popleft().result()
-        finally:
-            while pending:  # no orphaned puts behind a failed one
-                try:
-                    pending.popleft().result()
-                except Exception:
-                    pass
+            except Exception as exc:
+                first = first or exc
+        if first is not None and not quiet:
+            raise first
 
     def _finish(self, manifest, groups, slots, step) -> dict:
         """4. Manifest in original (leaf, part) order; register; GC."""
@@ -292,8 +353,8 @@ class DRexCheckpointer:
         self, waves, payloads, placements, slots, orig_lens, groups,
         step, pending,
     ) -> None:
-        """Encode each wave, copy its chunks to the host once, and hand
-        them to the I/O pool."""
+        """Encode each wave, copy its chunks to the host once, drop its
+        payloads, and hand the chunks to the I/O pool."""
         policy = self.policy
         for wave in waves:
             k, p = placements[wave[0]].k, placements[wave[0]].p
@@ -304,6 +365,8 @@ class DRexCheckpointer:
             chunk_mats = _to_host(codec.encode_many([payloads[i] for i in wave]))
             with self._meta_lock:
                 self.stats["encode_s"] += time.perf_counter() - t0
+            for i in wave:  # the snapshot shrinks as the save proceeds
+                payloads[i] = None
             entries = []
             for i, chunks in zip(wave, chunk_mats):
                 li, part = slots[i]
@@ -327,7 +390,7 @@ class DRexCheckpointer:
         stored = 0.0
         for g, chunks in entries:
             for row, node in enumerate(g.node_ids):
-                self.fabric.put(node, f"{g.key}_r{row}", chunks[row].tobytes())
+                self.fabric.put(node, f"{g.key}_r{row}", _blob(chunks[row]))
                 stored += chunks.shape[1]
         with self._meta_lock:
             self.stats["bytes_stored"] += stored
@@ -483,7 +546,7 @@ class DRexCheckpointer:
                 unplaced.append((g.key, len(missing), plan.reason))
                 continue
             for (row, _), new_node in zip(missing, plan.new_nodes):
-                self.fabric.put(new_node, f"{g.key}_r{row}", chunks[row].tobytes())
+                self.fabric.put(new_node, f"{g.key}_r{row}", _blob(chunks[row]))
                 g.node_ids[row] = new_node
                 rebuilt += 1
             gd["node_ids"] = g.node_ids

@@ -93,6 +93,7 @@ _VARIANT_ID = {"registers": 0, "shared": 1}
 
 #: kernel launches since import or the last :func:`reset_launches`.
 launches = 0
+_launch_lock = threading.Lock()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -163,7 +164,16 @@ def loaded() -> bool:
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _launch_lock:
+        launches = 0
+
+
+def _count_launch() -> None:
+    """One more launch, under a lock: a checkpointer's save launches from
+    its worker thread while the caller may launch too."""
+    global launches
+    with _launch_lock:
+        launches += 1
 
 
 def build(verbose: bool = False) -> pathlib.Path:
@@ -210,7 +220,6 @@ def frontier(
     docstring).  CUDA tensors launch the kernel; CPU tensors run
     :func:`repro_torch.kernels.ref.pb_frontier_ref`.  ``launch`` replaces
     :func:`plan`'s choice (tests force the rarer paths with it)."""
-    global launches
     if probs.dim() != 2 or targets.dim() != 1 or targets.shape[0] != probs.shape[0]:
         raise ValueError(
             f"need probs (B, L) and targets (B,), got {tuple(probs.shape)} "
@@ -243,5 +252,5 @@ def frontier(
         )
     if err != 0:
         raise RuntimeError(f"pb_frontier launch failed ({pl}): CUDA error {err}")
-    launches += 1
+    _count_launch()
     return out

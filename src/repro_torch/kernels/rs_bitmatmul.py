@@ -49,6 +49,7 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "rs_bitmatmul.cu"
 
 #: kernel launches since import or the last :func:`reset_launches`.
 launches = 0
+_launch_lock = threading.Lock()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -56,7 +57,16 @@ _lib_lock = threading.Lock()
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _launch_lock:
+        launches = 0
+
+
+def _count_launch() -> None:
+    """One more launch, under a lock: a checkpointer's save launches from
+    its worker thread while the caller may launch too."""
+    global launches
+    with _launch_lock:
+        launches += 1
 
 
 def build(verbose: bool = False) -> pathlib.Path:
@@ -110,7 +120,6 @@ def gf_bitmatmul(bit_matrix: torch.Tensor, data_chunks: torch.Tensor) -> torch.T
     on the data's device for the kernel; ``data_chunks``: (K, B) uint8,
     any B.  CUDA tensors launch the kernel; CPU tensors run
     :func:`repro_torch.kernels.ref.bitmatmul_ref`."""
-    global launches
     r, k, b = _check(bit_matrix, data_chunks)
     if data_chunks.device.type == "cpu":
         return _ref.bitmatmul_ref(bit_matrix, data_chunks)
@@ -141,5 +150,5 @@ def gf_bitmatmul(bit_matrix: torch.Tensor, data_chunks: torch.Tensor) -> torch.T
         )
     if err != 0:
         raise RuntimeError(f"rs_bitmatmul launch failed: CUDA error {err}")
-    launches += 1
+    _count_launch()
     return out

@@ -61,8 +61,11 @@ class TrainStateCheckpointer:
         return self.checkpointer.save(train_state_dict(state), step)
 
     def save_async(self, state: TrainState, step: int):
-        """Encodes on the calling thread before it returns (the snapshot),
-        so the next in-place step cannot touch what is saved."""
+        """Returns once the state's snapshot is taken: device copies
+        queued on the caller's current stream, so the next in-place step,
+        queued behind them, cannot touch what is saved.  Placement,
+        encode and puts run on the checkpointer's worker and its own
+        CUDA stream, overlapping the next steps."""
         return self.checkpointer.save_async(train_state_dict(state), step)
 
     def restore_latest(self, _cfg=None) -> Optional[tuple[TrainState, int]]:
