@@ -50,6 +50,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch._device import resolve_device
 from repro_torch.core import BatchContext, DataItem, Placement, PlacementEngine, Scheduler
 from repro_torch.core.reliability import poisson_binomial_cdf
@@ -97,6 +98,8 @@ class _Snapshot:
     orig_lens: list
     slots: list
     ready: Optional[torch.cuda.Event]
+    #: the save's operation id while tracing (``telemetry.span``), else None
+    op: Optional[int] = None
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -208,7 +211,8 @@ class DRexCheckpointer:
         Placement decisions for all groups are made against the cluster
         view at the start of the save (one ``place_many`` batch) — the
         fabric's byte accounting still updates as chunks land."""
-        return self._write(self._snapshot(state, step))
+        with telemetry.span("ckpt.save"):
+            return self._write(self._snapshot(state, step))
 
     def save_async(self, state: Mapping[str, torch.Tensor], step: int) -> Future:
         """Snapshot the state on the calling thread, then place, encode
@@ -225,7 +229,13 @@ class DRexCheckpointer:
             failed: Future = Future()
             failed.set_exception(exc)
             return failed
-        return self._save_pool.submit(self._write, snap)
+        return self._save_pool.submit(self._write_async, snap)
+
+    def _write_async(self, snap: _Snapshot) -> dict:
+        """:meth:`_write` on a save-pool worker, under the save's root
+        span, which joins the snapshot's operation."""
+        with telemetry.span("ckpt.save", op=snap.op):
+            return self._write(snap)
 
     def _snapshot(self, state, step) -> _Snapshot:
         """Phase 1 of a save, on the calling thread: every leaf split into
@@ -237,25 +247,26 @@ class DRexCheckpointer:
         payloads: list[torch.Tensor] = []
         orig_lens: list[int] = []
         slots: list[tuple[int, int]] = []  # (leaf_i, part)
-        for li, (name, leaf) in enumerate(state.items()):
-            raw = _leaf_bytes(leaf, self.device)
-            manifest["leaves"].append({
-                "name": str(name), "shape": list(leaf.shape),
-                "dtype": dtype_name(leaf.dtype), "groups": [],
-            })
-            nbytes = raw.numel()
-            with self._meta_lock:
-                self.stats["bytes_raw"] += nbytes
-            for off in range(0, max(nbytes, 1), max_bytes):
-                payload = raw[off : off + max_bytes]
-                payloads.append(_pad_to_bucket(payload))
-                orig_lens.append(payload.numel())
-                slots.append((li, off // max_bytes))
-        ready = None
-        if self.device.type == "cuda":
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-        return _Snapshot(step, manifest, payloads, orig_lens, slots, ready)
+        with telemetry.span("ckpt.save.snapshot") as sp:
+            for li, (name, leaf) in enumerate(state.items()):
+                raw = _leaf_bytes(leaf, self.device)
+                manifest["leaves"].append({
+                    "name": str(name), "shape": list(leaf.shape),
+                    "dtype": dtype_name(leaf.dtype), "groups": [],
+                })
+                nbytes = raw.numel()
+                with self._meta_lock:
+                    self.stats["bytes_raw"] += nbytes
+                for off in range(0, max(nbytes, 1), max_bytes):
+                    payload = raw[off : off + max_bytes]
+                    payloads.append(_pad_to_bucket(payload))
+                    orig_lens.append(payload.numel())
+                    slots.append((li, off // max_bytes))
+            ready = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+        return _Snapshot(step, manifest, payloads, orig_lens, slots, ready, sp.op)
 
     @contextlib.contextmanager
     def _save_stream(self, snap: _Snapshot):
@@ -276,7 +287,8 @@ class DRexCheckpointer:
         land, register the manifest."""
         groups: list[Optional[_Group]] = [None] * len(snap.payloads)
         with self._save_stream(snap):
-            placements = self._place(snap)
+            with telemetry.span("ckpt.save.place"):
+                placements = self._place(snap)
             # 3. Cohort waves: encode wave i+1 while wave i's chunks land.
             wave_size = 1 if self.policy.pipeline_workers == 0 else max(
                 1, self.policy.encode_wave_groups
@@ -294,8 +306,10 @@ class DRexCheckpointer:
             except BaseException:
                 self._drain(pending, quiet=True)  # no orphaned background puts
                 raise
-            self._drain(pending)
-        return self._finish(snap.manifest, groups, snap.slots, snap.step)
+            with telemetry.span("ckpt.save.put_wait"):
+                self._drain(pending)
+        with telemetry.span("ckpt.save.finish"):
+            return self._finish(snap.manifest, groups, snap.slots, snap.step)
 
     def _place(self, snap: _Snapshot) -> list[Placement]:
         """2. One placement batch: groups share retention and reliability
@@ -361,8 +375,13 @@ class DRexCheckpointer:
             codec = ECCodec(k, p, use_kernel=policy.use_kernel, device=self.device)
             t0 = time.perf_counter()
             # encode_s covers the coding and the wave's one copy to the
-            # host (which waits for the kernel).
-            chunk_mats = _to_host(codec.encode_many([payloads[i] for i in wave]))
+            # host (which waits for the kernel); the spans
+            # ckpt.save.encode and ckpt.save.d2h split it.
+            with telemetry.span("ckpt.save.encode"):
+                mats = codec.encode_many([payloads[i] for i in wave])
+            with telemetry.span("ckpt.save.d2h"):
+                chunk_mats = _to_host(mats)
+            del mats  # the wave's device chunks go before the next wave is encoded
             with self._meta_lock:
                 self.stats["encode_s"] += time.perf_counter() - t0
             for i in wave:  # the snapshot shrinks as the save proceeds
@@ -382,8 +401,10 @@ class DRexCheckpointer:
             else:
                 pending.append(self._io_pool.submit(self._put_wave, entries))
                 # double buffer: at most 2 waves of chunks in flight
-                while len(pending) > 2:
-                    pending.popleft().result()
+                if len(pending) > 2:
+                    with telemetry.span("ckpt.save.put_wait"):
+                        while len(pending) > 2:
+                            pending.popleft().result()
 
     def _put_wave(self, entries: list[tuple[_Group, np.ndarray]]) -> None:
         """Land one wave's chunks on the fabric (runs on the I/O pool)."""
@@ -420,19 +441,21 @@ class DRexCheckpointer:
         ]:
             raise ValueError("state structure mismatch: leaf names differ")
         out: dict[str, torch.Tensor] = {}
-        for meta in leaves_meta:
-            # All groups of a leaf decode in cohort launches (per (K, P)
-            # and erasure pattern) instead of one kernel call per group.
-            parts = self._load_groups([_Group(**g) for g in meta["groups"]])
-            raw = parts[0] if len(parts) == 1 else torch.cat(parts)
-            dtype = torch_dtype(meta["dtype"])
-            if raw.numel() == 0:
-                leaf = torch.empty(meta["shape"], dtype=dtype, device=raw.device)
-            else:
-                leaf = raw.contiguous().view(dtype).reshape(meta["shape"])
-            if like_state is not None:
-                leaf = leaf.to(like_state[meta["name"]].device)
-            out[meta["name"]] = leaf
+        with telemetry.span("ckpt.restore"):
+            for meta in leaves_meta:
+                # All groups of a leaf decode in cohort launches (per (K, P)
+                # and erasure pattern) instead of one kernel call per group.
+                parts = self._load_groups([_Group(**g) for g in meta["groups"]])
+                with telemetry.span("ckpt.restore.assemble"):
+                    raw = parts[0] if len(parts) == 1 else torch.cat(parts)
+                    dtype = torch_dtype(meta["dtype"])
+                    if raw.numel() == 0:
+                        leaf = torch.empty(meta["shape"], dtype=dtype, device=raw.device)
+                    else:
+                        leaf = raw.contiguous().view(dtype).reshape(meta["shape"])
+                    if like_state is not None:
+                        leaf = leaf.to(like_state[meta["name"]].device)
+                out[meta["name"]] = leaf
         return out
 
     def _load_groups(self, groups: list[_Group]) -> list[torch.Tensor]:
@@ -440,26 +463,28 @@ class DRexCheckpointer:
         Returns each group's payload bytes as a flat uint8 tensor on the
         checkpointer's device."""
         gathered: list[tuple[np.ndarray, np.ndarray, int]] = []
-        for g in groups:
-            rows, chunks = [], []
-            for row, node in enumerate(g.node_ids):
-                blob = self.fabric.get(node, f"{g.key}_r{row}")
-                if blob is not None:
-                    rows.append(row)
-                    chunks.append(np.frombuffer(blob, dtype=np.uint8))
-                if len(rows) == g.k:
-                    break
-            if len(rows) < g.k:
-                raise IOError(
-                    f"checkpoint group {g.key} unrecoverable: "
-                    f"{len(rows)}/{g.k} chunks available (P={g.p} exceeded)"
-                )
-            gathered.append((np.stack(chunks), np.array(rows), g.orig_nbytes))
+        with telemetry.span("ckpt.restore.gather"):
+            for g in groups:
+                rows, chunks = [], []
+                for row, node in enumerate(g.node_ids):
+                    blob = self.fabric.get(node, f"{g.key}_r{row}")
+                    if blob is not None:
+                        rows.append(row)
+                        chunks.append(np.frombuffer(blob, dtype=np.uint8))
+                    if len(rows) == g.k:
+                        break
+                if len(rows) < g.k:
+                    raise IOError(
+                        f"checkpoint group {g.key} unrecoverable: "
+                        f"{len(rows)}/{g.k} chunks available (P={g.p} exceeded)"
+                    )
+                gathered.append((np.stack(chunks), np.array(rows), g.orig_nbytes))
         outs: list = [None] * len(groups)
-        for (k, p), idxs in plan_cohorts([(g.k, g.p) for g in groups]):
-            codec = ECCodec(k, p, use_kernel=self.policy.use_kernel, device=self.device)
-            for i, raw in zip(idxs, codec.decode_many([gathered[i] for i in idxs])):
-                outs[i] = raw
+        with telemetry.span("ckpt.restore.decode"):
+            for (k, p), idxs in plan_cohorts([(g.k, g.p) for g in groups]):
+                codec = ECCodec(k, p, use_kernel=self.policy.use_kernel, device=self.device)
+                for i, raw in zip(idxs, codec.decode_many([gathered[i] for i in idxs])):
+                    outs[i] = raw
         return outs
 
     # -- failure handling ---------------------------------------------------------

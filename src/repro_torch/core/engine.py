@@ -40,6 +40,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch import telemetry
+
 from . import constraints as constraints_mod
 from . import greedy_kernel
 from .registry import create_scheduler, scheduler_capabilities
@@ -431,28 +433,30 @@ class PlacementEngine:
           consumes a score the commit could have affected.
 
         With ``atomic=True`` the whole batch is rolled back if any item
-        is rejected (records then carry ``committed=False``).
+        is rejected (records then carry ``committed=False``).  Traced as
+        ``engine.place_many``.
         """
-        c = self._effective_constraints(constraints)
-        ctx = ctx or BatchContext()
-        snap = self.snapshot()
-        records: list[PlacementRecord] = []
-        batched = self.capabilities.batch_scoring and hasattr(
-            self.scheduler, "place_batch"
-        )
-        try:
-            if batched:
-                records = self._place_many_batched(list(items), ctx, c)
-            else:
-                for item in items:
-                    records.append(self.place(item, ctx=ctx, constraints=c))
-        except Exception:
-            self.rollback(snap)
-            raise
-        if atomic and not all(r.ok for r in records):
-            self.rollback(snap)
-            records = [dataclasses.replace(r, committed=False) for r in records]
-        return records
+        with telemetry.span("engine.place_many"):
+            c = self._effective_constraints(constraints)
+            ctx = ctx or BatchContext()
+            snap = self.snapshot()
+            records: list[PlacementRecord] = []
+            batched = self.capabilities.batch_scoring and hasattr(
+                self.scheduler, "place_batch"
+            )
+            try:
+                if batched:
+                    records = self._place_many_batched(list(items), ctx, c)
+                else:
+                    for item in items:
+                        records.append(self.place(item, ctx=ctx, constraints=c))
+            except Exception:
+                self.rollback(snap)
+                raise
+            if atomic and not all(r.ok for r in records):
+                self.rollback(snap)
+                records = [dataclasses.replace(r, committed=False) for r in records]
+            return records
 
     #: upper bound on items scored per place_batch call: beyond this a
     #: vectorized scorer's per-item working set (e.g. the SC kernel's

@@ -24,6 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch._device import resolve_device
 from repro_torch.kernels import ops as kops
 
@@ -101,17 +102,19 @@ class ECCodec:
         return [torch.cat([d, par], dim=0) for d, par in zip(datas, parities)]
 
     def _select_rows(self, chunks, rows) -> tuple[torch.Tensor, np.ndarray]:
-        """Deterministic choice of K rows (sorted; systematic first)."""
-        rows = np.asarray(rows)
-        n_rows = chunks.shape[0]
-        if n_rows < self.k:
-            raise ValueError(f"need at least K={self.k} chunks, got {n_rows}")
-        sel = np.argsort(rows)[: self.k]
-        if isinstance(chunks, torch.Tensor):
-            picked = chunks[torch.from_numpy(sel).to(chunks.device)]
-        else:
-            picked = torch.from_numpy(np.array(chunks, dtype=np.uint8)[sel])
-        return picked.to(self._device()), rows[sel]
+        """Deterministic choice of K rows (sorted; systematic first), on
+        the codec's device.  Traced as ``ec.stage``."""
+        with telemetry.span("ec.stage"):
+            rows = np.asarray(rows)
+            n_rows = chunks.shape[0]
+            if n_rows < self.k:
+                raise ValueError(f"need at least K={self.k} chunks, got {n_rows}")
+            sel = np.argsort(rows)[: self.k]
+            if isinstance(chunks, torch.Tensor):
+                picked = chunks[torch.from_numpy(sel).to(chunks.device)]
+            else:
+                picked = torch.from_numpy(np.array(chunks, dtype=np.uint8)[sel])
+            return picked.to(self._device()), rows[sel]
 
     def decode(self, chunks, rows, orig_nbytes: int) -> torch.Tensor:
         """Any K chunk rows (+ their row indices) -> the original payload
@@ -150,10 +153,11 @@ class ECCodec:
                 pend_chunks.append(use_chunks)
                 pend_rows.append(use_rows)
         if pend_idx:
-            datas = kops.decode_chunks_many(
-                pend_chunks, pend_rows, self.k, self.p,
-                use_kernel=self.use_kernel,
-            )
+            with telemetry.span("ec.decode_kernel"):
+                datas = kops.decode_chunks_many(
+                    pend_chunks, pend_rows, self.k, self.p,
+                    use_kernel=self.use_kernel,
+                )
             for i, data in zip(pend_idx, datas):
                 outs[i] = data.reshape(-1)[: parts[i][2]]
         return outs
