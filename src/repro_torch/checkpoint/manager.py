@@ -28,6 +28,12 @@ stream (an in-place training step) runs after the copies and overlaps
 the save.  Each wave's payloads are dropped once its chunks are on the
 host.  The I/O pool handles host bytes only.
 
+A restore copies each group's first K live chunk rows once, straight
+from the fabric's blobs.  On CUDA they go into one of a few reused
+page-locked buffers, and one non-blocking copy a group, on the caller's
+current stream, takes them to the card while the host fills the next
+buffer; on the CPU they go into the tensor the decode takes.
+
 The state is an ordered ``dict[str, torch.Tensor]`` (a ``state_dict``);
 leaf order is the dict's order and the manifest records each leaf's
 name, shape and dtype.  Leaf bytes are the tensor's raw bytes
@@ -162,6 +168,81 @@ def _blob(row: np.ndarray) -> memoryview:
     return memoryview(row).toreadonly()
 
 
+def _copy_rows(dst: np.ndarray, rows: list[np.ndarray]) -> None:
+    """The one host copy of a group's chunk rows (numpy releases the GIL
+    for it)."""
+    for r, row in enumerate(rows):
+        dst[r] = row
+
+
+#: slots of a CUDA restore's page-locked staging: the host fills one
+#: while the copies of the others to the card run.
+_STAGING_SLOTS = 3
+
+
+class _PinnedStaging:
+    """A CUDA restore's reused page-locked buffers: ``_STAGING_SLOTS``
+    slots cut from one allocation, taken in turn.  The allocation is
+    the power of two at or above the slots of the largest group staged
+    so far, the size torch's host allocator gives it anyway, and each
+    slot a third of it, so groups a few bytes larger fit without a new
+    one.  A slot is written again only after the event recorded behind
+    its last copy to the card has completed.  One ``_load_groups`` call
+    holds ``lock`` while it stages."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.lock = threading.Lock()
+        self._flat: Optional[torch.Tensor] = None
+        self._slot_bytes = 0
+        self._events: list[Optional[torch.cuda.Event]] = [None] * _STAGING_SLOTS
+        self._next = 0
+
+    def _wait(self, slot: int) -> float:
+        """Host seconds spent waiting for the slot's last copy."""
+        ev = self._events[slot]
+        if ev is None or ev.query():
+            return 0.0
+        t0 = time.perf_counter()
+        ev.synchronize()
+        return time.perf_counter() - t0
+
+    def stage(self, rows: list[np.ndarray], last: bool) -> tuple[torch.Tensor, float]:
+        """(a fresh (K, chunk_len) uint8 tensor on the device that the
+        rows are being copied into on the current stream, host seconds
+        waited for a slot's copy).  After the ``last`` group of a call the
+        host waits for its copy too, so every copy ends inside the
+        ``ec.stage`` span of a group."""
+        k, clen = len(rows), rows[0].size
+        n = k * clen
+        if n == 0:
+            return torch.empty((k, clen), dtype=torch.uint8, device=self.device), 0.0
+        if n > self._slot_bytes:
+            total = 1 << (_STAGING_SLOTS * n - 1).bit_length()
+            self._slot_bytes = max(n, total // _STAGING_SLOTS // 4096 * 4096)
+            # the smaller buffer goes back to torch's host allocator, which
+            # hands it out again only after the copies from it have ended
+            self._flat = None
+            self._flat = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        slot = self._next
+        self._next = (slot + 1) % _STAGING_SLOTS
+        waited = self._wait(slot)
+        off = slot * self._slot_bytes
+        host = self._flat[off : off + n].view(k, clen)
+        _copy_rows(host.numpy(), rows)
+        out = torch.empty((k, clen), dtype=torch.uint8, device=self.device)
+        out.copy_(host, non_blocking=True)
+        if self._events[slot] is None:
+            self._events[slot] = torch.cuda.Event()
+        self._events[slot].record(torch.cuda.current_stream(self.device))
+        if last:
+            waited += self._wait(slot)
+        return out, waited
+
+    def close(self) -> None:
+        self._flat, self._slot_bytes = None, 0
+
+
 class DRexCheckpointer:
     def __init__(
         self,
@@ -199,8 +280,17 @@ class DRexCheckpointer:
         self._stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
+        #: where a CUDA restore stages its chunks on the host.
+        self._staging = (
+            _PinnedStaging(self.device) if self.device.type == "cuda" else None
+        )
         self.stats: dict[str, float] = {
             "bytes_raw": 0.0, "bytes_stored": 0.0, "encode_s": 0.0, "place_s": 0.0,
+            # restores: groups staged through page-locked buffers, bytes
+            # copied into staging (K x chunk_len a group), host seconds
+            # waited for a staging buffer's copy to the card
+            "restore_pinned_groups": 0, "restore_staged_bytes": 0,
+            "restore_buffer_wait_s": 0.0,
         }
 
     # -- save -------------------------------------------------------------------
@@ -462,7 +552,7 @@ class DRexCheckpointer:
         """Fetch + decode many groups, batching decodes by (K, P).
         Returns each group's payload bytes as a flat uint8 tensor on the
         checkpointer's device."""
-        gathered: list[tuple[np.ndarray, np.ndarray, int]] = []
+        fetched: list[tuple[list[int], list[np.ndarray]]] = []
         with telemetry.span("ckpt.restore.gather"):
             for g in groups:
                 rows, chunks = [], []
@@ -478,7 +568,14 @@ class DRexCheckpointer:
                         f"checkpoint group {g.key} unrecoverable: "
                         f"{len(rows)}/{g.k} chunks available (P={g.p} exceeded)"
                     )
-                gathered.append((np.stack(chunks), np.array(rows), g.orig_nbytes))
+                fetched.append((rows, chunks))
+        # The first K live rows in ascending order are what the codec
+        # would pick, so each group's rows go to it as staged.
+        staged = self._stage([chunks for _, chunks in fetched])
+        gathered = [
+            (mat, np.array(rows), g.orig_nbytes)
+            for g, (rows, _), mat in zip(groups, fetched, staged)
+        ]
         outs: list = [None] * len(groups)
         with telemetry.span("ckpt.restore.decode"):
             for (k, p), idxs in plan_cohorts([(g.k, g.p) for g in groups]):
@@ -486,6 +583,34 @@ class DRexCheckpointer:
                 for i, raw in zip(idxs, codec.decode_many([gathered[i] for i in idxs])):
                     outs[i] = raw
         return outs
+
+    def _stage(self, groups_rows: list[list[np.ndarray]]) -> list[torch.Tensor]:
+        """Each group's chunk rows, copied once from the fabric's blobs,
+        as one (K, chunk_len) uint8 tensor on the checkpointer's device.
+        On CUDA the copy goes into a reused page-locked buffer, from which
+        one non-blocking copy a group, on the caller's current stream,
+        takes it to the card while the host fills the next buffer; on the
+        CPU it goes into the fresh tensor.  One ``ec.stage`` span a group."""
+        out: list[torch.Tensor] = []
+        waited = 0.0
+        staging = self._staging
+        with staging.lock if staging is not None else contextlib.nullcontext():
+            for i, rows in enumerate(groups_rows):
+                with telemetry.span("ec.stage"):
+                    if staging is None:
+                        mat = torch.empty((len(rows), rows[0].size), dtype=torch.uint8)
+                        _copy_rows(mat.numpy(), rows)
+                    else:
+                        mat, w = staging.stage(rows, last=i == len(groups_rows) - 1)
+                        waited += w
+                out.append(mat)
+        staged = sum(mat.numel() for mat in out)
+        with self._meta_lock:
+            self.stats["restore_staged_bytes"] += staged
+            if staging is not None:
+                self.stats["restore_pinned_groups"] += sum(1 for m in out if m.numel())
+                self.stats["restore_buffer_wait_s"] += waited
+        return out
 
     # -- failure handling ---------------------------------------------------------
 
@@ -616,6 +741,10 @@ class DRexCheckpointer:
                         self.fabric.delete(node, f"{gd['key']}_r{row}")
 
     def close(self) -> None:
-        """Shut the save and I/O pools down (waits for running work)."""
+        """Shut the save and I/O pools down (waits for running work) and
+        free the restore's staging buffers."""
         self._save_pool.shutdown(wait=True)
         self._io_pool.shutdown(wait=True)
+        if self._staging is not None:
+            with self._staging.lock:
+                self._staging.close()

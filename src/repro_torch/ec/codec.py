@@ -103,18 +103,21 @@ class ECCodec:
 
     def _select_rows(self, chunks, rows) -> tuple[torch.Tensor, np.ndarray]:
         """Deterministic choice of K rows (sorted; systematic first), on
-        the codec's device.  Traced as ``ec.stage``."""
-        with telemetry.span("ec.stage"):
-            rows = np.asarray(rows)
-            n_rows = chunks.shape[0]
-            if n_rows < self.k:
-                raise ValueError(f"need at least K={self.k} chunks, got {n_rows}")
-            sel = np.argsort(rows)[: self.k]
-            if isinstance(chunks, torch.Tensor):
-                picked = chunks[torch.from_numpy(sel).to(chunks.device)]
-            else:
-                picked = torch.from_numpy(np.array(chunks, dtype=np.uint8)[sel])
-            return picked.to(self._device()), rows[sel]
+        the codec's device.  A tensor of exactly K rows in ascending order
+        is that choice already and is passed through as it is."""
+        rows = np.asarray(rows)
+        n_rows = chunks.shape[0]
+        if n_rows < self.k:
+            raise ValueError(f"need at least K={self.k} chunks, got {n_rows}")
+        tensor = isinstance(chunks, torch.Tensor)
+        if tensor and n_rows == self.k and bool(np.all(np.diff(rows) > 0)):
+            return chunks.to(self._device()), rows
+        sel = np.argsort(rows)[: self.k]
+        if tensor:
+            picked = chunks[torch.from_numpy(sel).to(chunks.device)]
+        else:
+            picked = torch.from_numpy(np.array(chunks, dtype=np.uint8)[sel])
+        return picked.to(self._device()), rows[sel]
 
     def decode(self, chunks, rows, orig_nbytes: int) -> torch.Tensor:
         """Any K chunk rows (+ their row indices) -> the original payload
