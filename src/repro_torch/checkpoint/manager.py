@@ -32,7 +32,10 @@ A restore copies each group's first K live chunk rows once, straight
 from the fabric's blobs.  On CUDA they go into one of a few reused
 page-locked buffers, and one non-blocking copy a group, on the caller's
 current stream, takes them to the card while the host fills the next
-buffer; on the CPU they go into the tensor the decode takes.
+buffer; on the CPU they go into the tensor the decode takes.  Leaves
+are loaded in batches of consecutive leaves of up to ~256 MiB of staged
+chunks (a larger leaf alone): one staging pass and one decode pass a
+batch, so a state of many small leaves is not restored leaf by leaf.
 
 The state is an ordered ``dict[str, torch.Tensor]`` (a ``state_dict``);
 leaf order is the dict's order and the manifest records each leaf's
@@ -130,6 +133,14 @@ def _leaf_bytes(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return flat.view(torch.uint8)
 
 
+def _bucket_len(n: int) -> int:
+    """Bytes of the power-of-two bucket (at least 4096) that holds ``n``."""
+    bucket = 4096
+    while bucket < n:
+        bucket <<= 1
+    return bucket
+
+
 def _pad_to_bucket(payload: torch.Tensor) -> torch.Tensor:
     """Pad to power-of-two bucket sizes so the codec sees a bounded set of
     chunk shapes — <=2x padding on the tail group only.  Every
@@ -137,13 +148,39 @@ def _pad_to_bucket(payload: torch.Tensor) -> torch.Tensor:
     the shape of the surviving ones.  The result is always a new tensor,
     also when the payload fills its bucket: a save's snapshot must not
     alias the state."""
-    bucket = 4096
     n = payload.numel()
-    while bucket < n:
-        bucket <<= 1
-    out = payload.new_zeros(bucket)
+    out = payload.new_zeros(_bucket_len(n))
     out[:n] = payload
     return out
+
+
+def _staged_len(g: dict) -> int:
+    """Bytes a restore stages for a manifest group: its K chunk rows of
+    ceil(bucket / K) bytes."""
+    return g["k"] * -(-_bucket_len(g["orig_nbytes"]) // g["k"])
+
+
+#: staged bytes past which a restore stops adding leaves to one
+#: ``_load_groups`` call: about the staging allocation of 64 MB groups.
+_RESTORE_BATCH_BYTES = 256 << 20
+
+
+def _restore_batches(leaves_meta: list) -> list[list[int]]:
+    """Indices of consecutive manifest leaves, cut into the batches a
+    restore loads together.  Whole leaves are added while the batch's
+    staged bytes stay within :data:`_RESTORE_BATCH_BYTES`; a leaf that
+    would take it past them starts the next batch, so a larger leaf is
+    a batch of its own."""
+    batches: list[list[int]] = []
+    size = 0
+    for i, meta in enumerate(leaves_meta):
+        n = sum(_staged_len(g) for g in meta["groups"])
+        if not batches or size + n > _RESTORE_BATCH_BYTES:
+            batches.append([])
+            size = 0
+        batches[-1].append(i)
+        size += n
+    return batches
 
 
 def _to_host(chunk_mats: list[torch.Tensor]) -> list[np.ndarray]:
@@ -197,6 +234,10 @@ class _PinnedStaging:
         self._slot_bytes = 0
         self._events: list[Optional[torch.cuda.Event]] = [None] * _STAGING_SLOTS
         self._next = 0
+        #: (slot, page-locked rows, device tensor) of the group whose copy
+        #: to the card is not queued yet, and the slot last queued
+        self._pending: Optional[tuple[int, torch.Tensor, torch.Tensor]] = None
+        self._queued: Optional[int] = None
 
     def _wait(self, slot: int) -> float:
         """Host seconds spent waiting for the slot's last copy."""
@@ -207,40 +248,58 @@ class _PinnedStaging:
         ev.synchronize()
         return time.perf_counter() - t0
 
-    def stage(self, rows: list[np.ndarray], last: bool) -> tuple[torch.Tensor, float]:
-        """(a fresh (K, chunk_len) uint8 tensor on the device that the
-        rows are being copied into on the current stream, host seconds
-        waited for a slot's copy).  After the ``last`` group of a call the
-        host waits for its copy too, so every copy ends inside the
-        ``ec.stage`` span of a group."""
-        k, clen = len(rows), rows[0].size
-        n = k * clen
-        if n == 0:
-            return torch.empty((k, clen), dtype=torch.uint8, device=self.device), 0.0
-        if n > self._slot_bytes:
-            total = 1 << (_STAGING_SLOTS * n - 1).bit_length()
-            self._slot_bytes = max(n, total // _STAGING_SLOTS // 4096 * 4096)
-            # the smaller buffer goes back to torch's host allocator, which
-            # hands it out again only after the copies from it have ended
-            self._flat = None
-            self._flat = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-        slot = self._next
-        self._next = (slot + 1) % _STAGING_SLOTS
-        waited = self._wait(slot)
-        off = slot * self._slot_bytes
-        host = self._flat[off : off + n].view(k, clen)
-        _copy_rows(host.numpy(), rows)
-        out = torch.empty((k, clen), dtype=torch.uint8, device=self.device)
+    def _enqueue(self) -> None:
+        """Queue the pending group's copy to the card on the current
+        stream, and record its slot's event behind it."""
+        if self._pending is None:
+            return
+        slot, host, out = self._pending
+        self._pending = None
         out.copy_(host, non_blocking=True)
         if self._events[slot] is None:
             self._events[slot] = torch.cuda.Event()
         self._events[slot].record(torch.cuda.current_stream(self.device))
+        self._queued = slot
+
+    def stage(self, rows: list[np.ndarray], last: bool) -> tuple[torch.Tensor, float]:
+        """(a fresh (K, chunk_len) uint8 tensor on the device that the
+        rows will be copied into on the current stream, host seconds
+        waited for a slot's copy).  A group's copy to the card is queued
+        as the next group's staging begins, so that it runs under that
+        group's ``ec.stage`` span while the host copies the next rows.  The
+        ``last`` group of a call queues its own copy and waits for it, so
+        every copy ends inside the span of a group.  Queuing a copy a few
+        microseconds later moves no work and saves no time: it is there
+        only so that a trace attributes each copy to a staging span, where
+        a copy queued at once would overlap the gap between two spans."""
+        self._enqueue()
+        k, clen = len(rows), rows[0].size
+        n = k * clen
+        out = torch.empty((k, clen), dtype=torch.uint8, device=self.device)
+        waited = 0.0
+        if n:
+            if n > self._slot_bytes:
+                total = 1 << (_STAGING_SLOTS * n - 1).bit_length()
+                self._slot_bytes = max(n, total // _STAGING_SLOTS // 4096 * 4096)
+                # the smaller buffer goes back to torch's host allocator, which
+                # hands it out again only after the copies from it have ended
+                self._flat = None
+                self._flat = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+            slot = self._next
+            self._next = (slot + 1) % _STAGING_SLOTS
+            waited = self._wait(slot)
+            off = slot * self._slot_bytes
+            host = self._flat[off : off + n].view(k, clen)
+            _copy_rows(host.numpy(), rows)
+            self._pending = (slot, host, out)
         if last:
-            waited += self._wait(slot)
+            self._enqueue()
+            if self._queued is not None:
+                waited += self._wait(self._queued)
         return out, waited
 
     def close(self) -> None:
-        self._flat, self._slot_bytes = None, 0
+        self._flat, self._slot_bytes, self._pending = None, 0, None
 
 
 class DRexCheckpointer:
@@ -287,10 +346,13 @@ class DRexCheckpointer:
         self.stats: dict[str, float] = {
             "bytes_raw": 0.0, "bytes_stored": 0.0, "encode_s": 0.0, "place_s": 0.0,
             # restores: groups staged through page-locked buffers, bytes
-            # copied into staging (K x chunk_len a group), host seconds
-            # waited for a staging buffer's copy to the card
+            # copied into staging (K x chunk_len a group) and those of
+            # them that are bucket padding, host seconds waited for a
+            # staging buffer's copy to the card, and ``_load_groups``
+            # calls made by ``restore`` (one a batch of leaves)
             "restore_pinned_groups": 0, "restore_staged_bytes": 0,
-            "restore_buffer_wait_s": 0.0,
+            "restore_pad_bytes": 0, "restore_buffer_wait_s": 0.0,
+            "restore_batches": 0,
         }
 
     # -- save -------------------------------------------------------------------
@@ -523,7 +585,10 @@ class DRexCheckpointer:
 
         Leaves are decoded on the checkpointer's device; with
         ``like_state`` (a state dict with the same leaf names) each leaf
-        lands on the device of its counterpart there."""
+        lands on the device of its counterpart there.  Consecutive leaves
+        load together, in the batches :func:`_restore_batches` cuts: one
+        gather, one staging pass and one decode pass a batch, then each
+        leaf is assembled from its own groups."""
         manifest = self._manifests[step]
         leaves_meta = manifest["leaves"]
         if like_state is not None and list(like_state) != [
@@ -532,21 +597,35 @@ class DRexCheckpointer:
             raise ValueError("state structure mismatch: leaf names differ")
         out: dict[str, torch.Tensor] = {}
         with telemetry.span("ckpt.restore"):
-            for meta in leaves_meta:
-                # All groups of a leaf decode in cohort launches (per (K, P)
-                # and erasure pattern) instead of one kernel call per group.
-                parts = self._load_groups([_Group(**g) for g in meta["groups"]])
-                with telemetry.span("ckpt.restore.assemble"):
-                    raw = parts[0] if len(parts) == 1 else torch.cat(parts)
-                    dtype = torch_dtype(meta["dtype"])
-                    if raw.numel() == 0:
-                        leaf = torch.empty(meta["shape"], dtype=dtype, device=raw.device)
-                    else:
-                        leaf = raw.contiguous().view(dtype).reshape(meta["shape"])
-                    if like_state is not None:
-                        leaf = leaf.to(like_state[meta["name"]].device)
-                out[meta["name"]] = leaf
+            for batch in _restore_batches(leaves_meta):
+                # All groups of a batch of leaves decode in cohort launches
+                # (per (K, P) and erasure pattern), and their staging waits
+                # for its last copy once.
+                metas = [leaves_meta[i] for i in batch]
+                parts = self._load_groups([_Group(**g) for m in metas for g in m["groups"]])
+                with self._meta_lock:
+                    self.stats["restore_batches"] += 1
+                off = 0
+                for meta in metas:
+                    n = len(meta["groups"])
+                    out[meta["name"]] = self._assemble(meta, parts[off : off + n], like_state)
+                    off += n
         return out
+
+    @staticmethod
+    def _assemble(meta: dict, parts: list[torch.Tensor], like_state) -> torch.Tensor:
+        """One leaf from its groups' payload bytes, on the device of its
+        counterpart in ``like_state`` when given."""
+        with telemetry.span("ckpt.restore.assemble"):
+            raw = parts[0] if len(parts) == 1 else torch.cat(parts)
+            dtype = torch_dtype(meta["dtype"])
+            if raw.numel() == 0:
+                leaf = torch.empty(meta["shape"], dtype=dtype, device=raw.device)
+            else:
+                leaf = raw.contiguous().view(dtype).reshape(meta["shape"])
+            if like_state is not None:
+                leaf = leaf.to(like_state[meta["name"]].device)
+        return leaf
 
     def _load_groups(self, groups: list[_Group]) -> list[torch.Tensor]:
         """Fetch + decode many groups, batching decodes by (K, P).
@@ -572,6 +651,9 @@ class DRexCheckpointer:
         # The first K live rows in ascending order are what the codec
         # would pick, so each group's rows go to it as staged.
         staged = self._stage([chunks for _, chunks in fetched])
+        with self._meta_lock:
+            self.stats["restore_pad_bytes"] += sum(
+                mat.numel() - g.orig_nbytes for g, mat in zip(groups, staged))
         gathered = [
             (mat, np.array(rows), g.orig_nbytes)
             for g, (rows, _), mat in zip(groups, fetched, staged)

@@ -24,6 +24,7 @@ from repro_torch import telemetry
 from repro_torch.checkpoint import CheckpointPolicy as TPolicy
 from repro_torch.checkpoint import DRexCheckpointer as TCheckpointer
 from repro_torch.checkpoint import StorageFabric as TFabric
+from repro_torch.checkpoint import manager
 from repro_torch.checkpoint.interop import state_dict_from_numpy
 from repro_torch.ec import plan_cohorts
 from repro_torch.storage import make_node_set as t_node_set
@@ -245,8 +246,15 @@ def test_traced_operations_equal_untraced_and_the_references(workers):
         ck.close()
 
 
+@pytest.mark.parametrize("batch_bytes, batches", [(None, 1), (300_000, 3)])
 @pytest.mark.parametrize("workers", [0, 2])
-def test_each_operation_records_its_spans(workers):
+def test_each_operation_records_its_spans(workers, batch_bytes, batches, monkeypatch):
+    """A restore's gather and decode are one a batch of leaves (all five
+    leaves in one batch at the default size; at 300,000 staged bytes ``w``
+    alone, ``ids`` alone, the three small leaves together), its assembly
+    one a leaf and its staging one a group."""
+    if batch_bytes is not None:
+        monkeypatch.setattr(manager, "_RESTORE_BATCH_BYTES", batch_bytes)
     leaves = _leaves(4)
     n_leaves = len(leaves)
     ck = _port(workers, wave=2)
@@ -275,8 +283,10 @@ def test_each_operation_records_its_spans(workers):
 
     restore = by_root["ckpt.restore"]
     n_groups = sum(len(m["groups"]) for m in man["leaves"])
-    for name in ("ckpt.restore.gather", "ckpt.restore.decode", "ckpt.restore.assemble"):
-        assert _count(restore, name) == n_leaves, name
+    assert ck.stats["restore_batches"] == batches
+    for name in ("ckpt.restore.gather", "ckpt.restore.decode"):
+        assert _count(restore, name) == batches, name
+    assert _count(restore, "ckpt.restore.assemble") == n_leaves
     assert _count(restore, "ec.stage") == n_groups
     assert _count(restore, "ec.decode_kernel") >= 1  # row 0 of a group is lost
     assert all(s.thread == me for s in restore)
