@@ -11,10 +11,12 @@ group; ``repair`` re-encodes degraded groups after failures.
 checkpoint are placed in ONE ``place_many`` batch (one shared
 ``BatchContext``), encoded in per-(K, P) cohort waves through
 ``ECCodec.encode_many`` (one kernel launch per wave), copied to the host
-once per wave, and each wave's fabric ``put`` overlaps the *next* wave's
-encode through a multi-worker I/O pool (double-buffered — at most two
-waves of chunks are in flight).  ``pipeline_workers=0`` is the serial
-path (per-group encode then put).
+once per wave (on CUDA each group's chunks straight into a reused
+page-locked block, of which the fabric's blobs are views), and each
+wave's fabric ``put`` overlaps the *next* wave's encode through a
+multi-worker I/O pool (double-buffered — at most two waves of chunks
+are in flight).  ``pipeline_workers=0`` is the serial path (per-group
+encode then put).
 
 A save starts with a snapshot on the calling thread: every group's
 bucket-padded payload is copied into a fresh tensor on the
@@ -49,12 +51,15 @@ leaf bytes.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import mmap
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -183,26 +188,131 @@ def _restore_batches(leaves_meta: list) -> list[list[int]]:
     return batches
 
 
-def _to_host(chunk_mats: list[torch.Tensor]) -> list[np.ndarray]:
-    """One device-to-host copy for a list of chunk matrices; returns
-    numpy views of the one host buffer, shaped like the inputs."""
-    if not chunk_mats:
-        return []
-    flat = torch.cat([c.reshape(-1) for c in chunk_mats]).cpu().numpy()
-    out, off = [], 0
-    for c in chunk_mats:
-        n = c.numel()
-        out.append(flat[off : off + n].reshape(tuple(c.shape)))
-        off += n
-    return out
-
-
 def _blob(row: np.ndarray) -> memoryview:
     """A chunk row as the fabric keeps it: a read-only view of its wave's
     host buffer, equal to the row's bytes.  A ``tobytes`` copy would hold
     the GIL for its whole memcpy, and an async save's puts would then
     stall every launch of the caller's training step."""
     return memoryview(row).toreadonly()
+
+
+#: ``cudaHostRegisterPortable``: page-locked for every CUDA context
+_HOST_REGISTER_PORTABLE = 1
+
+
+def _page_locked(nbytes: int) -> Optional[tuple[torch.Tensor, Callable[[], None]]]:
+    """An exact-size host block page-locked in place: an anonymous
+    private mapping (page-aligned, so torch's power-of-two rounding of
+    page-locked allocations is not paid) registered with CUDA.
+    Returns (the block as a uint8 tensor, the call that unregisters it),
+    or None where CUDA does not page-lock it."""
+    block = torch.frombuffer(mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE), dtype=torch.uint8)
+    cudart = torch.cuda.cudart()
+    ptr = block.data_ptr()
+    if int(cudart.cudaHostRegister(ptr, nbytes, _HOST_REGISTER_PORTABLE)) != 0:
+        # the refusal stays this thread's last CUDA error, which torch's
+        # next kernel launch would raise; reading it resets it
+        ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}").cudaGetLastError()
+        return None
+    return block, lambda: cudart.cudaHostUnregister(ptr)
+
+
+class _HostBlocks:
+    """A CUDA save's reused host blocks, keyed by exact byte size: each
+    group's chunk matrix is copied from the card straight into one.  A
+    block a group, not a wave, so that a group placed at another (K, P)
+    than in an earlier save changes the size of its own block only, and
+    not of every block of its wave and the waves after it.
+
+    ``take`` hands a block out as a fresh ndarray over it.  The group's
+    chunk rows, and so the fabric's blobs, are views of that ndarray; when
+    the last view is gone (every blob deleted or lost with its node, every
+    restore's or repair's view of them dropped) the block goes back to the
+    idle list, and only a later ``take`` of the same size writes it again.
+    Nothing else frees a block: a restore on another thread may still be
+    reading one whose checkpoint was collected.  Idle blocks are kept up
+    to the chunk bytes of the largest save so far (``note_save``), with
+    any block allocated because none of its size was idle, the oldest
+    released first; ``close`` releases the idle ones, and a block still
+    viewed then is released when its last view goes.
+
+    ``alloc(nbytes)`` returns (a uint8 tensor of ``nbytes``, the call that
+    frees it), or None where it cannot; it page-locks by default."""
+
+    def __init__(self, alloc: Callable[[int], Optional[tuple]] = _page_locked):
+        self._alloc = alloc
+        #: reentrant: a block can come back on a thread already inside
+        self._lock = threading.RLock()
+        self._idle: list[tuple[torch.Tensor, Callable[[], None]]] = []  # oldest first
+        self._limit = 0
+        self._closed = False
+        #: bytes of the idle blocks, and of every block not yet released
+        self.idle_bytes = 0
+        self.held_bytes = 0
+        # a pool dropped without ``close`` still releases its idle blocks
+        weakref.finalize(self, _HostBlocks._release_all, self._idle).atexit = False
+
+    @staticmethod
+    def _release_all(idle: list) -> None:
+        for _, release in idle:
+            release()
+
+    def note_save(self, nbytes: int) -> None:
+        """Keep up to a save of ``nbytes`` chunk bytes of idle blocks."""
+        with self._lock:
+            self._limit = max(self._limit, nbytes)
+
+    def take(self, nbytes: int) -> Optional[tuple[np.ndarray, torch.Tensor, int]]:
+        """(a fresh ndarray over a block of exactly ``nbytes``, the block
+        as a tensor to copy into, the bytes newly allocated for it), or
+        None where no block is idle and none can be allocated."""
+        with self._lock:  # the block given back last: its pages are the warmest
+            i = next((i for i in reversed(range(len(self._idle)))
+                      if self._idle[i][0].numel() == nbytes), None)
+            if i is not None:
+                block = self._idle.pop(i)
+                self.idle_bytes -= nbytes
+            else:  # the idle blocks and the new one stay within one save
+                self._trim(nbytes)
+        fresh = 0
+        if i is None:
+            block = self._alloc(nbytes)  # outside the lock: page-locking takes a while
+            if block is None:
+                return None
+            fresh = nbytes
+            with self._lock:
+                self.held_bytes += nbytes
+        host = block[0].numpy()
+        weakref.finalize(host, self._give_back, block).atexit = False
+        return host, block[0], fresh
+
+    def _give_back(self, block: tuple[torch.Tensor, Callable[[], None]]) -> None:
+        with self._lock:
+            if self._closed:
+                self._release(block)
+                return
+            self._idle.append(block)
+            self.idle_bytes += block[0].numel()
+            self._trim(0)
+
+    def _trim(self, extra: int) -> None:
+        """Release idle blocks, the oldest first, until ``extra`` more
+        bytes of them would stay within one save."""
+        while self._idle and self.idle_bytes + extra > self._limit:
+            old = self._idle.pop(0)
+            self.idle_bytes -= old[0].numel()
+            self._release(old)
+
+    def _release(self, block: tuple[torch.Tensor, Callable[[], None]]) -> None:
+        self.held_bytes -= block[0].numel()
+        block[1]()
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            while self._idle:
+                self._release(self._idle.pop())
+            self.idle_bytes = 0
 
 
 def _copy_rows(dst: np.ndarray, rows: list[np.ndarray]) -> None:
@@ -343,6 +453,8 @@ class DRexCheckpointer:
         self._staging = (
             _PinnedStaging(self.device) if self.device.type == "cuda" else None
         )
+        #: where a CUDA save's waves land on the host
+        self._save_blocks = _HostBlocks() if self.device.type == "cuda" else None
         self.stats: dict[str, float] = {
             "bytes_raw": 0.0, "bytes_stored": 0.0, "encode_s": 0.0, "place_s": 0.0,
             # restores: groups staged through page-locked buffers, bytes
@@ -353,6 +465,12 @@ class DRexCheckpointer:
             "restore_pinned_groups": 0, "restore_staged_bytes": 0,
             "restore_pad_bytes": 0, "restore_buffer_wait_s": 0.0,
             "restore_batches": 0,
+            # CUDA saves (and repairs): chunk bytes copied into reused
+            # page-locked blocks, bytes of the blocks newly page-locked
+            # for them, and chunk bytes that took the pageable copy
+            # because no block could be page-locked
+            "save_pinned_bytes": 0, "save_pinned_alloc_bytes": 0,
+            "save_pageable_bytes": 0,
         }
 
     # -- save -------------------------------------------------------------------
@@ -522,6 +640,10 @@ class DRexCheckpointer:
         """Encode each wave, copy its chunks to the host once, drop its
         payloads, and hand the chunks to the I/O pool."""
         policy = self.policy
+        if self._save_blocks is not None:
+            self._save_blocks.note_save(sum(
+                (pl.k + pl.p) * -(-payloads[i].numel() // pl.k)
+                for i, pl in enumerate(placements)))
         for wave in waves:
             k, p = placements[wave[0]].k, placements[wave[0]].p
             codec = ECCodec(k, p, use_kernel=policy.use_kernel, device=self.device)
@@ -532,7 +654,7 @@ class DRexCheckpointer:
             with telemetry.span("ckpt.save.encode"):
                 mats = codec.encode_many([payloads[i] for i in wave])
             with telemetry.span("ckpt.save.d2h"):
-                chunk_mats = _to_host(mats)
+                chunk_mats = self._to_host(mats)
             del mats  # the wave's device chunks go before the next wave is encoded
             with self._meta_lock:
                 self.stats["encode_s"] += time.perf_counter() - t0
@@ -557,6 +679,45 @@ class DRexCheckpointer:
                     with telemetry.span("ckpt.save.put_wait"):
                         while len(pending) > 2:
                             pending.popleft().result()
+
+    def _to_host(self, mats: list[torch.Tensor]) -> list[np.ndarray]:
+        """The chunk matrices copied to the host once, as numpy arrays
+        shaped like them.  With host blocks (a CUDA checkpointer) each
+        matrix is copied into a reused page-locked block of its own size,
+        on the current stream, and the arrays are handed out once those
+        copies are done; a matrix whose block is refused takes a pageable
+        copy.  On the CPU they are views of one copy of the matrices'
+        concatenation."""
+        if not mats:
+            return []
+        if self._save_blocks is None:
+            flat = torch.cat([m.reshape(-1) for m in mats]).cpu().numpy()
+            out, off = [], 0
+            for m in mats:
+                out.append(flat[off : off + m.numel()].reshape(tuple(m.shape)))
+                off += m.numel()
+            return out
+        out, pinned, fresh, pageable = [], 0, 0, 0
+        for m in mats:
+            got = self._save_blocks.take(m.numel())
+            if got is None:
+                out.append(m.cpu().numpy())
+                pageable += m.numel()
+                continue
+            host, block, new = got
+            block.view(m.shape).copy_(m, non_blocking=True)
+            out.append(host.reshape(tuple(m.shape)))
+            pinned += m.numel()
+            fresh += new
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        with self._meta_lock:
+            self.stats["save_pinned_bytes"] += pinned
+            self.stats["save_pinned_alloc_bytes"] += fresh
+            self.stats["save_pageable_bytes"] += pageable
+        return out
 
     def _put_wave(self, entries: list[tuple[_Group, np.ndarray]]) -> None:
         """Land one wave's chunks on the fabric (runs on the I/O pool)."""
@@ -741,7 +902,7 @@ class DRexCheckpointer:
         for (k, p), idxs in plan_cohorts(specs):
             codec = ECCodec(k, p, use_kernel=self.policy.use_kernel, device=self.device)
             mats = codec.encode_many([_pad_to_bucket(payloads[i]) for i in idxs])
-            for i, chunks in zip(idxs, _to_host(mats)):
+            for i, chunks in zip(idxs, self._to_host(mats)):
                 all_chunks[i] = chunks
         # 3. Re-place + land replacements, group by group (plans see the
         # fabric bytes earlier repairs already landed).
@@ -823,10 +984,14 @@ class DRexCheckpointer:
                         self.fabric.delete(node, f"{gd['key']}_r{row}")
 
     def close(self) -> None:
-        """Shut the save and I/O pools down (waits for running work) and
-        free the restore's staging buffers."""
+        """Shut the save and I/O pools down (waits for running work),
+        free the restore's staging buffers and release the save's idle
+        host blocks (a block the fabric still holds is released when its
+        last view goes)."""
         self._save_pool.shutdown(wait=True)
         self._io_pool.shutdown(wait=True)
+        if self._save_blocks is not None:
+            self._save_blocks.close()
         if self._staging is not None:
             with self._staging.lock:
                 self._staging.close()
