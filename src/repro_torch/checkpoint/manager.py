@@ -11,8 +11,8 @@ group; ``repair`` re-encodes degraded groups after failures.
 checkpoint are placed in ONE ``place_many`` batch (one shared
 ``BatchContext``), encoded in per-(K, P) cohort waves through
 ``ECCodec.encode_many`` (one kernel launch per wave), copied to the host
-once per wave (on CUDA each group's chunks straight into a reused
-page-locked block, of which the fabric's blobs are views), and each
+once per wave (each group's chunks straight into a reused host block,
+page-locked on CUDA, of which the fabric's blobs are views), and each
 wave's fabric ``put`` overlaps the *next* wave's encode through a
 multi-worker I/O pool (double-buffered — at most two waves of chunks
 are in flight).  ``pipeline_workers=0`` is the serial path (per-group
@@ -30,14 +30,15 @@ stream (an in-place training step) runs after the copies and overlaps
 the save.  Each wave's payloads are dropped once its chunks are on the
 host.  The I/O pool handles host bytes only.
 
-A restore copies each group's first K live chunk rows once, straight
-from the fabric's blobs.  On CUDA they go into one of a few reused
-page-locked buffers, and one non-blocking copy a group, on the caller's
-current stream, takes them to the card while the host fills the next
-buffer; on the CPU they go into the tensor the decode takes.  Leaves
-are loaded in batches of consecutive leaves of up to ~256 MiB of staged
-chunks (a larger leaf alone): one staging pass and one decode pass a
-batch, so a state of many small leaves is not restored leaf by leaf.
+A restore copies each group's first K live chunk rows straight from
+the fabric's blobs into one (K, chunk_len) tensor on the checkpointer's
+device, a row at a time, on the caller's current stream.  On CUDA the
+blobs a save wrote are views of page-locked blocks, which the card
+reads directly, so no chunk byte is copied on the host; the host waits
+once a batch for those copies before it lets go of the rows.  Leaves
+are loaded in batches of consecutive leaves of up to ~256 MiB of
+staged chunks (a larger leaf alone): one copy pass and one decode pass
+a batch, so a state of many small leaves is not restored leaf by leaf.
 
 The state is an ordered ``dict[str, torch.Tensor]`` (a ``state_dict``);
 leaf order is the dict's order and the manifest records each leaf's
@@ -166,7 +167,7 @@ def _staged_len(g: dict) -> int:
 
 
 #: staged bytes past which a restore stops adding leaves to one
-#: ``_load_groups`` call: about the staging allocation of 64 MB groups.
+#: ``_load_groups`` call: the K rows of about four 64 MB groups.
 _RESTORE_BATCH_BYTES = 256 << 20
 
 
@@ -217,9 +218,15 @@ def _page_locked(nbytes: int) -> Optional[tuple[torch.Tensor, Callable[[], None]
     return block, lambda: cudart.cudaHostUnregister(ptr)
 
 
+def _plain_host(nbytes: int) -> tuple[torch.Tensor, Callable[[], None]]:
+    """An exact-size block of plain host memory, for a CPU checkpointer:
+    torch frees it with its last reference, so releasing it does nothing."""
+    return torch.empty(nbytes, dtype=torch.uint8), lambda: None
+
+
 class _HostBlocks:
-    """A CUDA save's reused host blocks, keyed by exact byte size: each
-    group's chunk matrix is copied from the card straight into one.  A
+    """A checkpointer's reused host blocks, keyed by exact byte size: each
+    group's chunk matrix is copied from the device straight into one.  A
     block a group, not a wave, so that a group placed at another (K, P)
     than in an earlier save changes the size of its own block only, and
     not of every block of its wave and the waves after it.
@@ -237,9 +244,10 @@ class _HostBlocks:
     viewed then is released when its last view goes.
 
     ``alloc(nbytes)`` returns (a uint8 tensor of ``nbytes``, the call that
-    frees it), or None where it cannot; it page-locks by default."""
+    frees it), or None where it cannot: :func:`_page_locked` on CUDA,
+    :func:`_plain_host` on the CPU."""
 
-    def __init__(self, alloc: Callable[[int], Optional[tuple]] = _page_locked):
+    def __init__(self, alloc: Callable[[int], Optional[tuple]]):
         self._alloc = alloc
         #: reentrant: a block can come back on a thread already inside
         self._lock = threading.RLock()
@@ -315,103 +323,6 @@ class _HostBlocks:
             self.idle_bytes = 0
 
 
-def _copy_rows(dst: np.ndarray, rows: list[np.ndarray]) -> None:
-    """The one host copy of a group's chunk rows (numpy releases the GIL
-    for it)."""
-    for r, row in enumerate(rows):
-        dst[r] = row
-
-
-#: slots of a CUDA restore's page-locked staging: the host fills one
-#: while the copies of the others to the card run.
-_STAGING_SLOTS = 3
-
-
-class _PinnedStaging:
-    """A CUDA restore's reused page-locked buffers: ``_STAGING_SLOTS``
-    slots cut from one allocation, taken in turn.  The allocation is
-    the power of two at or above the slots of the largest group staged
-    so far, the size torch's host allocator gives it anyway, and each
-    slot a third of it, so groups a few bytes larger fit without a new
-    one.  A slot is written again only after the event recorded behind
-    its last copy to the card has completed.  One ``_load_groups`` call
-    holds ``lock`` while it stages."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.lock = threading.Lock()
-        self._flat: Optional[torch.Tensor] = None
-        self._slot_bytes = 0
-        self._events: list[Optional[torch.cuda.Event]] = [None] * _STAGING_SLOTS
-        self._next = 0
-        #: (slot, page-locked rows, device tensor) of the group whose copy
-        #: to the card is not queued yet, and the slot last queued
-        self._pending: Optional[tuple[int, torch.Tensor, torch.Tensor]] = None
-        self._queued: Optional[int] = None
-
-    def _wait(self, slot: int) -> float:
-        """Host seconds spent waiting for the slot's last copy."""
-        ev = self._events[slot]
-        if ev is None or ev.query():
-            return 0.0
-        t0 = time.perf_counter()
-        ev.synchronize()
-        return time.perf_counter() - t0
-
-    def _enqueue(self) -> None:
-        """Queue the pending group's copy to the card on the current
-        stream, and record its slot's event behind it."""
-        if self._pending is None:
-            return
-        slot, host, out = self._pending
-        self._pending = None
-        out.copy_(host, non_blocking=True)
-        if self._events[slot] is None:
-            self._events[slot] = torch.cuda.Event()
-        self._events[slot].record(torch.cuda.current_stream(self.device))
-        self._queued = slot
-
-    def stage(self, rows: list[np.ndarray], last: bool) -> tuple[torch.Tensor, float]:
-        """(a fresh (K, chunk_len) uint8 tensor on the device that the
-        rows will be copied into on the current stream, host seconds
-        waited for a slot's copy).  A group's copy to the card is queued
-        as the next group's staging begins, so that it runs under that
-        group's ``ec.stage`` span while the host copies the next rows.  The
-        ``last`` group of a call queues its own copy and waits for it, so
-        every copy ends inside the span of a group.  Queuing a copy a few
-        microseconds later moves no work and saves no time: it is there
-        only so that a trace attributes each copy to a staging span, where
-        a copy queued at once would overlap the gap between two spans."""
-        self._enqueue()
-        k, clen = len(rows), rows[0].size
-        n = k * clen
-        out = torch.empty((k, clen), dtype=torch.uint8, device=self.device)
-        waited = 0.0
-        if n:
-            if n > self._slot_bytes:
-                total = 1 << (_STAGING_SLOTS * n - 1).bit_length()
-                self._slot_bytes = max(n, total // _STAGING_SLOTS // 4096 * 4096)
-                # the smaller buffer goes back to torch's host allocator, which
-                # hands it out again only after the copies from it have ended
-                self._flat = None
-                self._flat = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-            slot = self._next
-            self._next = (slot + 1) % _STAGING_SLOTS
-            waited = self._wait(slot)
-            off = slot * self._slot_bytes
-            host = self._flat[off : off + n].view(k, clen)
-            _copy_rows(host.numpy(), rows)
-            self._pending = (slot, host, out)
-        if last:
-            self._enqueue()
-            if self._queued is not None:
-                waited += self._wait(self._queued)
-        return out, waited
-
-    def close(self) -> None:
-        self._flat, self._slot_bytes, self._pending = None, 0, None
-
-
 class DRexCheckpointer:
     def __init__(
         self,
@@ -449,26 +360,23 @@ class DRexCheckpointer:
         self._stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
-        #: where a CUDA restore stages its chunks on the host.
-        self._staging = (
-            _PinnedStaging(self.device) if self.device.type == "cuda" else None
+        #: where a save's chunks land on the host, and what the fabric's
+        #: blobs view
+        self._save_blocks = _HostBlocks(
+            _page_locked if self.device.type == "cuda" else _plain_host
         )
-        #: where a CUDA save's waves land on the host
-        self._save_blocks = _HostBlocks() if self.device.type == "cuda" else None
         self.stats: dict[str, float] = {
             "bytes_raw": 0.0, "bytes_stored": 0.0, "encode_s": 0.0, "place_s": 0.0,
-            # restores: groups staged through page-locked buffers, bytes
-            # copied into staging (K x chunk_len a group) and those of
-            # them that are bucket padding, host seconds waited for a
-            # staging buffer's copy to the card, and ``_load_groups``
-            # calls made by ``restore`` (one a batch of leaves)
-            "restore_pinned_groups": 0, "restore_staged_bytes": 0,
-            "restore_pad_bytes": 0, "restore_buffer_wait_s": 0.0,
-            "restore_batches": 0,
-            # CUDA saves (and repairs): chunk bytes copied into reused
-            # page-locked blocks, bytes of the blocks newly page-locked
-            # for them, and chunk bytes that took the pageable copy
-            # because no block could be page-locked
+            # restores: bytes copied to the device (K x chunk_len a group)
+            # and those of them that are bucket padding, host seconds
+            # waited for those copies on CUDA, and ``_load_groups`` calls
+            # made by ``restore`` (one a batch of leaves)
+            "restore_staged_bytes": 0, "restore_pad_bytes": 0,
+            "restore_buffer_wait_s": 0.0, "restore_batches": 0,
+            # saves (and repairs): chunk bytes copied into reused host
+            # blocks (page-locked on CUDA), bytes of the blocks newly
+            # allocated for them, and chunk bytes that took the pageable
+            # copy because no block could be allocated
             "save_pinned_bytes": 0, "save_pinned_alloc_bytes": 0,
             "save_pageable_bytes": 0,
         }
@@ -640,10 +548,9 @@ class DRexCheckpointer:
         """Encode each wave, copy its chunks to the host once, drop its
         payloads, and hand the chunks to the I/O pool."""
         policy = self.policy
-        if self._save_blocks is not None:
-            self._save_blocks.note_save(sum(
-                (pl.k + pl.p) * -(-payloads[i].numel() // pl.k)
-                for i, pl in enumerate(placements)))
+        self._save_blocks.note_save(sum(
+            (pl.k + pl.p) * -(-payloads[i].numel() // pl.k)
+            for i, pl in enumerate(placements)))
         for wave in waves:
             k, p = placements[wave[0]].k, placements[wave[0]].p
             codec = ECCodec(k, p, use_kernel=policy.use_kernel, device=self.device)
@@ -682,21 +589,10 @@ class DRexCheckpointer:
 
     def _to_host(self, mats: list[torch.Tensor]) -> list[np.ndarray]:
         """The chunk matrices copied to the host once, as numpy arrays
-        shaped like them.  With host blocks (a CUDA checkpointer) each
-        matrix is copied into a reused page-locked block of its own size,
-        on the current stream, and the arrays are handed out once those
+        shaped like them: each matrix into a reused host block of its own
+        size, on the current stream, the arrays handed out once those
         copies are done; a matrix whose block is refused takes a pageable
-        copy.  On the CPU they are views of one copy of the matrices'
-        concatenation."""
-        if not mats:
-            return []
-        if self._save_blocks is None:
-            flat = torch.cat([m.reshape(-1) for m in mats]).cpu().numpy()
-            out, off = [], 0
-            for m in mats:
-                out.append(flat[off : off + m.numel()].reshape(tuple(m.shape)))
-                off += m.numel()
-            return out
+        copy."""
         out, pinned, fresh, pageable = [], 0, 0, 0
         for m in mats:
             got = self._save_blocks.take(m.numel())
@@ -748,8 +644,8 @@ class DRexCheckpointer:
         ``like_state`` (a state dict with the same leaf names) each leaf
         lands on the device of its counterpart there.  Consecutive leaves
         load together, in the batches :func:`_restore_batches` cuts: one
-        gather, one staging pass and one decode pass a batch, then each
-        leaf is assembled from its own groups."""
+        gather, one copy pass and one decode pass a batch, then each leaf
+        is assembled from its own groups."""
         manifest = self._manifests[step]
         leaves_meta = manifest["leaves"]
         if like_state is not None and list(like_state) != [
@@ -760,8 +656,8 @@ class DRexCheckpointer:
         with telemetry.span("ckpt.restore"):
             for batch in _restore_batches(leaves_meta):
                 # All groups of a batch of leaves decode in cohort launches
-                # (per (K, P) and erasure pattern), and their staging waits
-                # for its last copy once.
+                # (per (K, P) and erasure pattern), and the host waits for
+                # their copies to the device once.
                 metas = [leaves_meta[i] for i in batch]
                 parts = self._load_groups([_Group(**g) for m in metas for g in m["groups"]])
                 with self._meta_lock:
@@ -810,7 +706,7 @@ class DRexCheckpointer:
                     )
                 fetched.append((rows, chunks))
         # The first K live rows in ascending order are what the codec
-        # would pick, so each group's rows go to it as staged.
+        # would pick, so each group's rows go to it as copied.
         staged = self._stage([chunks for _, chunks in fetched])
         with self._meta_lock:
             self.stats["restore_pad_bytes"] += sum(
@@ -828,31 +724,30 @@ class DRexCheckpointer:
         return outs
 
     def _stage(self, groups_rows: list[list[np.ndarray]]) -> list[torch.Tensor]:
-        """Each group's chunk rows, copied once from the fabric's blobs,
-        as one (K, chunk_len) uint8 tensor on the checkpointer's device.
-        On CUDA the copy goes into a reused page-locked buffer, from which
-        one non-blocking copy a group, on the caller's current stream,
-        takes it to the card while the host fills the next buffer; on the
-        CPU it goes into the fresh tensor.  One ``ec.stage`` span a group."""
+        """Each group's chunk rows copied straight from the fabric's blobs
+        into one new (K, chunk_len) uint8 tensor on the checkpointer's
+        device, a non-blocking copy a row on the current stream.  On CUDA
+        the host then waits for the copies: once a row's last view is
+        gone its block can be written again by a save.  One ``ec.stage``
+        span, from the first copy queued to the end of that wait."""
         out: list[torch.Tensor] = []
         waited = 0.0
-        staging = self._staging
-        with staging.lock if staging is not None else contextlib.nullcontext():
-            for i, rows in enumerate(groups_rows):
-                with telemetry.span("ec.stage"):
-                    if staging is None:
-                        mat = torch.empty((len(rows), rows[0].size), dtype=torch.uint8)
-                        _copy_rows(mat.numpy(), rows)
-                    else:
-                        mat, w = staging.stage(rows, last=i == len(groups_rows) - 1)
-                        waited += w
+        with telemetry.span("ec.stage"):
+            for rows in groups_rows:
+                mat = torch.empty((len(rows), rows[0].size), dtype=torch.uint8,
+                                  device=self.device)
+                for dst, row in zip(mat, rows):
+                    dst.copy_(torch.from_numpy(row), non_blocking=True)
                 out.append(mat)
-        staged = sum(mat.numel() for mat in out)
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                t0 = time.perf_counter()
+                done.synchronize()
+                waited = time.perf_counter() - t0
         with self._meta_lock:
-            self.stats["restore_staged_bytes"] += staged
-            if staging is not None:
-                self.stats["restore_pinned_groups"] += sum(1 for m in out if m.numel())
-                self.stats["restore_buffer_wait_s"] += waited
+            self.stats["restore_staged_bytes"] += sum(mat.numel() for mat in out)
+            self.stats["restore_buffer_wait_s"] += waited
         return out
 
     # -- failure handling ---------------------------------------------------------
@@ -984,14 +879,9 @@ class DRexCheckpointer:
                         self.fabric.delete(node, f"{gd['key']}_r{row}")
 
     def close(self) -> None:
-        """Shut the save and I/O pools down (waits for running work),
-        free the restore's staging buffers and release the save's idle
-        host blocks (a block the fabric still holds is released when its
-        last view goes)."""
+        """Shut the save and I/O pools down (waits for running work) and
+        release the save's idle host blocks (a block the fabric still
+        holds is released when its last view goes)."""
         self._save_pool.shutdown(wait=True)
         self._io_pool.shutdown(wait=True)
-        if self._save_blocks is not None:
-            self._save_blocks.close()
-        if self._staging is not None:
-            with self._staging.lock:
-                self._staging.close()
+        self._save_blocks.close()

@@ -1,11 +1,11 @@
-"""A CUDA restore's page-locked staging on a card: back-to-back restores
-of a ~290 MB state with a data-carrying node lost, each compared byte for
-byte with the state (a staging buffer written again before its copy to
-the card had landed would show here), also from two threads at once.
-Every group goes through the page-locked buffers, and after the first
-restore no page-locked memory is allocated; what is allocated stays
-within the slots of the largest group.  Without a card every case skips
-(decided inside the test); jax is not imported.
+"""A CUDA restore's copies on a card: back-to-back restores of a ~290 MB
+state with a data-carrying node lost, each compared byte for byte with
+the state, also from two threads at once.  Each chunk row is copied to
+the card straight from the fabric's blob, a view of the save's
+page-locked block: after the first restore no restore allocates
+page-locked memory, and a profiled restore's host-to-device copies all
+read as from pinned memory.  Without a card every case skips (decided
+inside the test); jax is not imported.
 
     PYTHONPATH=src python3 -m pytest tests/test_torch_restore_card.py
 """
@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from repro_torch.checkpoint import CheckpointPolicy, DRexCheckpointer, StorageFabric
-from repro_torch.checkpoint import manager
 from repro_torch.storage import make_node_set
 
 RESTORES = 4
@@ -51,10 +50,6 @@ def _pinned_bytes() -> int:
     return int(torch.cuda.host_memory_stats().get("allocated_bytes.current", 0))
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << (n - 1).bit_length()
-
-
 def _mismatched(out, state) -> int:
     bad = 0
     for name, want in state.items():
@@ -83,7 +78,7 @@ def test_back_to_back_restores_after_a_node_loss(card, threads):
     allocs, pinned = _host_allocs(), _pinned_bytes()
     first = ck.restore(1)
     torch.cuda.synchronize(card)
-    after_first = _host_allocs()
+    after_first, pinned_after_first = _host_allocs(), _pinned_bytes()
     assert after_first - allocs <= 1  # one allocation, or torch's cached one reused
     assert _mismatched(first, state) == 0
     start = threading.Barrier(threads)
@@ -98,13 +93,31 @@ def test_back_to_back_restores_after_a_node_loss(card, threads):
     torch.cuda.synchronize(card)
     assert [_mismatched(o, state) for o in outs] == [0] * len(outs)
     n = 1 + threads * RESTORES
-    assert ck.stats["restore_pinned_groups"] == n * len(groups)
     assert ck.stats["restore_staged_bytes"] == n * staged
-    assert _host_allocs() == after_first
-    largest = max(g["k"] * c for g, c in zip(groups, lens))
-    assert _pinned_bytes() - pinned <= _next_pow2(manager._STAGING_SLOTS * largest)
+    assert _host_allocs() == after_first and _pinned_bytes() == pinned_after_first
     print({"threads": threads, "groups": len(groups), "restores": n,
+           "first_restore_pinned_bytes": pinned_after_first - pinned,
            "buffer_wait_s": ck.stats["restore_buffer_wait_s"],
            "host_memory_stats": {k: v for k, v in torch.cuda.host_memory_stats().items()
                                  if k.startswith(("num_host", "allocated_bytes"))}})
+    ck.close()
+
+
+def test_a_restore_copies_from_pinned_memory_only(card):
+    """A profiled restore of block-view blobs: every host-to-device copy
+    the card runs reads as from pinned memory, and none as pageable."""
+    state = _state(card)
+    ck = DRexCheckpointer(StorageFabric(make_node_set("most_used")), "drex_sc",
+                          CheckpointPolicy(), device=card)
+    man = ck.save(state, 1)
+    ck.on_node_failure(man["leaves"][0]["groups"][0]["node_ids"][0])
+    ck.restore(1)  # warm: the decode's matrices are built and moved once
+    torch.cuda.synchronize(card)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = ck.restore(1)
+        torch.cuda.synchronize(card)
+    copies = {e.key: e.count for e in prof.key_averages() if e.key.startswith("Memcpy HtoD")}
+    print({"htod": copies})
+    assert _mismatched(out, state) == 0
+    assert copies and set(copies) == {"Memcpy HtoD (Pinned -> Device)"}, copies
     ck.close()

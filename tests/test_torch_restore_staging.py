@@ -1,9 +1,11 @@
-"""A restore's staging on the CPU: each group's first K live chunk rows
-are copied once from the fabric's blobs into one (K, chunk_len) uint8
-tensor, which the codec takes as it is.  Restored bytes are held
-against the JAX package's restore of the same leaves after the same
-losses; every comparison is exact.  ``test_torch_restore_card.py`` holds
-the page-locked path of a CUDA checkpointer.
+"""A restore's copies on the CPU: each group's first K live chunk rows
+are copied once, straight from the fabric's blobs, into one
+(K, chunk_len) uint8 tensor, which the codec takes as it is.  Restored
+bytes are held against the JAX package's restore of the same leaves
+after the same losses, also from blobs that are ``bytes`` (what a
+``persist_dir`` reload holds) in place of views of the save's blocks;
+every comparison is exact.  ``test_torch_restore_card.py`` holds a CUDA
+checkpointer's copies from its page-locked blocks.
 """
 
 from __future__ import annotations
@@ -174,8 +176,26 @@ def test_staging_counters(loss):
     for n in (1, 2):
         ck.restore(1)
         assert ck.stats["restore_staged_bytes"] == n * want
-        assert ck.stats["restore_pinned_groups"] == 0
         assert ck.stats["restore_buffer_wait_s"] == 0.0
+    ck.close()
+
+
+@pytest.mark.parametrize("loss", LOSSES)
+def test_a_restore_from_bytes_blobs_equals_one_from_block_views(loss):
+    """Every blob replaced by ``bytes`` of it, as a ``persist_dir`` reload
+    holds them: the restore takes the same copies and gives the same
+    bytes as the restore of the save's views."""
+    ck, _man, leaves = _saved(loss, seed=6)
+    held = ck.fabric._blobs
+    assert all(isinstance(b, memoryview) for blobs in held for b in blobs.values())
+    views = _bytes(ck.restore(1))
+    staged = ck.stats["restore_staged_bytes"]
+    for blobs in held:
+        for key, blob in blobs.items():
+            blobs[key] = bytes(blob)
+    assert _bytes(ck.restore(1)) == views
+    assert list(views.values()) == [a.tobytes() for _, a in leaves]
+    assert ck.stats["restore_staged_bytes"] == 2 * staged
     ck.close()
 
 

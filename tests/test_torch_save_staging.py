@@ -1,15 +1,16 @@
-"""A save's host blocks on the CPU: each wave's chunk matrices copied into
+"""A save's host blocks on the CPU: each group's chunk matrix copied into
 one reused block, of which the fabric's blobs are views.
 
-``manager._HostBlocks`` page-locks its blocks by default; here it is
-given plain host memory, and a CPU checkpointer is given such a pool, so
-the whole block path (take, copy, views, give back, reuse) runs without
-a card.  A block is written again only after every view of it is gone,
-sizes are matched exactly, idle blocks stay within one save's chunk
-bytes, and ``close`` empties the pool.  Chunk bytes and manifests are
-held against the JAX package's, with and without the pool; every
-comparison is exact.  ``test_torch_save_card.py`` holds the page-locked
-path of a CUDA checkpointer.
+A CPU checkpointer's ``manager._HostBlocks`` allocates plain host memory;
+here it is also given an allocator that records what it gives and frees,
+so the whole block path (take, copy, views, give back, reuse) is
+watched without a card.  A block is written again only after every view
+of it is gone, sizes are matched exactly, idle blocks stay within one
+save's chunk bytes, and ``close`` empties the pool.  Chunk bytes and
+manifests are held against the JAX package's, with the checkpointer's
+own pool and with the recording one; every comparison is exact.
+``test_torch_save_card.py`` holds the page-locked path of a CUDA
+checkpointer.
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ def _leaves(seed: int):
 
 
 def _port(alloc=None, workers=2, wave=3, scheduler="drex_sc"):
-    """A CPU checkpointer; with ``alloc`` its waves land in host blocks."""
+    """A CPU checkpointer; with ``alloc`` its host blocks come from it."""
     ck = TCheckpointer(TFabric(t_node_set("most_used", capacity_scale=SCALE)), scheduler,
                        TPolicy(item_mb=ITEM_MB, keep_last=KEEP, pipeline_workers=workers,
                                encode_wave_groups=wave), device="cpu")
@@ -279,13 +280,13 @@ def test_many_threads_take_and_give_back():
 # -- the checkpointer -----------------------------------------------------------
 
 
-@pytest.mark.parametrize("blocks", [False, True])
+@pytest.mark.parametrize("pool", ["default", "recorded"])
 @pytest.mark.parametrize("workers,wave", [(0, 16), (2, 3)])
-def test_chunks_and_manifests_equal_the_references(blocks, workers, wave):
+def test_chunks_and_manifests_equal_the_references(pool, workers, wave):
     """Saves with collection, a node loss and a repair: every manifest,
-    blob and byte count as the JAX package's, with the CPU path's
-    pageable copy and with host blocks."""
-    alloc = PlainHost() if blocks else None
+    blob and byte count as the JAX package's, with the CPU checkpointer's
+    own plain-memory pool and with a recording allocator."""
+    alloc = PlainHost() if pool == "recorded" else None
     ck, ref = _port(alloc, workers, wave), _reference(workers, wave)
     for step in range(1, 5):
         man = _save(ck, step, step)
@@ -300,11 +301,9 @@ def test_chunks_and_manifests_equal_the_references(blocks, workers, wave):
     assert ck.fabric._blobs == ref.fabric._blobs
     assert ck.stats["bytes_stored"] == ref.stats["bytes_stored"]
     assert _restored_bytes(ck, 4) == _want(4)
-    if blocks:
-        assert ck.stats["save_pinned_bytes"] > 0 and ck.stats["save_pageable_bytes"] == 0
-    else:
-        assert ck._save_blocks is None
-        assert ck.stats["save_pinned_bytes"] == ck.stats["save_pageable_bytes"] == 0
+    assert ck.stats["save_pinned_bytes"] > 0 and ck.stats["save_pageable_bytes"] == 0
+    if alloc is not None:
+        assert ck.stats["save_pinned_alloc_bytes"] == alloc.allocated
     ck.close()
 
 
